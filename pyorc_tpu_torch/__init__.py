@@ -1,0 +1,32 @@
+"""pyorc_tpu_torch — the PyTorch/CUDA port of pyorc_tpu.
+
+River frames in, surface velocity fields and discharge out, on an NVIDIA
+GPU: frame normalization and orthorectification run as PyTorch ops on the
+device, and the per-pair PIV correlation runs as a hand-written CUDA kernel
+(:mod:`pyorc_tpu_torch.ops.piv_kernels`). The geometry core (camera model,
+PnP, CRS) is host-side float64 numpy, as in the JAX package.
+
+The package mirrors ``pyorc_tpu``'s layout and names module for module, and
+imports neither JAX nor ``pyorc_tpu``. Work runs on the device that
+:func:`set_device` selects, "cuda" by default.
+"""
+
+__version__ = "0.1.0"
+
+from . import ndx
+from ._device import get_device, set_device
+from .ndx import DataArray, Dataset
+from . import api as _api  # registers .frames/.velocimetry/.transect accessors  # noqa: E402
+from .api.cameraconfig import CameraConfig, get_camera_config, load_camera_config  # noqa: E402
+
+__all__ = [
+    "DataArray",
+    "Dataset",
+    "ndx",
+    "CameraConfig",
+    "get_camera_config",
+    "load_camera_config",
+    "get_device",
+    "set_device",
+    "__version__",
+]

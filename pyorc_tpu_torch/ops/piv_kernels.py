@@ -1,0 +1,243 @@
+"""Per-pair PIV on the GPU: the hand-written CUDA kernel and its plain version.
+
+Counterpart of :mod:`pyorc_tpu.ops.piv_pallas`. The TPU package runs the
+per-pair contract ``piv_pairs_fused`` through three Pallas kernels chosen by
+geometry (shared-forward tileband, band, plain tileband). Here one CUDA
+kernel, ``pyorc_tpu_torch/csrc/piv_pairs.cu``, computes the same function:
+
+    frames [T, H, W] (uint8 or float32) -> (u, v, corr_max, s2n),
+    each float32 [n_pairs, n_rows, n_cols]
+
+with ``n_pairs = T - 1`` for consecutive frames (``pair_stride=1``) or
+``T // 2`` for interleaved explicit pairs (``pair_stride=2``). Its semantics
+are those of the Pallas kernels (``piv_pallas._finish_corr`` and the NaN
+stores): a window pair with a zero-variance window gives NaN ``u``/``v``,
+``corr_max = 0`` and ``s2n = 0`` (the guarded ``max / max(mean, 1e-10)``).
+With ``signal_threshold`` set, a pair whose smaller fraction of non-zero
+pixels falls below it gives NaN in all four outputs.
+
+:func:`piv_pairs_fused` launches the kernel for a CUDA tensor, or raises;
+for a CPU tensor it runs :func:`piv_pairs_fused_plain`, the same contract in
+plain PyTorch. The kernel is compiled with ``nvcc`` for ``sm_90a`` at first
+use into ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from . import piv as piv_ops
+from . import windows as win
+
+__all__ = [
+    "piv_pairs_fused",
+    "piv_pairs_fused_plain",
+    "KERNEL_ROUTE",
+    "build_library",
+    "MIN_WINDOW",
+    "MAX_WINDOW",
+]
+
+# Route the last call of each entry point took: "cuda" (the kernel) or
+# "plain_cpu" (the plain version on a CPU tensor). Tests and the chip smoke
+# run assert on it, so a path that skips the kernel cannot pass unnoticed.
+KERNEL_ROUTE: dict = {}
+# Kernel launches since import (or since a caller reset it to 0); only the
+# kernel launch site adds to it.
+LAUNCHES = 0
+
+MIN_WINDOW = 8
+MAX_WINDOW = 64
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "piv_pairs.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def build_library() -> Path:
+    """Compile ``csrc/piv_pairs.cu`` (once per source hash) and return the library path.
+
+    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside the library as ``<name>.log``.
+    """
+    src = _SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"libpiv_pairs-{digest}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{proc.stdout}\n{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    fn = lib.piv_pairs_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # frames
+        ctypes.c_int,  # frames are uint8 (1) or float32 (0)
+        ctypes.c_int, ctypes.c_int,  # H, W
+        ctypes.c_int,  # window size
+        ctypes.c_int, ctypes.c_int,  # step_y, step_x
+        ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
+        ctypes.c_int, ctypes.c_int,  # n_pairs, pair_stride
+        ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
+        ctypes.c_void_p, ctypes.c_void_p,  # cos, sin tables
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # u, v, cmax, s2n
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_tables(n: int, device: torch.device):
+    """float32 cos/sin tables of the n-point DFT (made in float64) on ``device``."""
+    c, s = piv_ops._dft_mats(n)
+    return torch.as_tensor(c, device=device), torch.as_tensor(s, device=device)
+
+
+def _grid_steps(dim_size, sas, overlap, n_rows, n_cols):
+    """(step_y, step_x) of the window grid, checked against (n_rows, n_cols)."""
+    if (n_rows, n_cols) != win.get_field_shape(dim_size, sas, overlap):
+        raise ValueError(
+            f"(n_rows, n_cols)={(n_rows, n_cols)} does not match the window grid of "
+            f"{tuple(dim_size)} at window {tuple(sas)}, overlap {tuple(overlap)}"
+        )
+    return sas[0] - overlap[0], sas[1] - overlap[1]
+
+
+def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
+    global LAUNCHES
+    wy, wx = sas
+    if wy != wx or not MIN_WINDOW <= wx <= MAX_WINDOW:
+        raise ValueError(
+            f"piv_pairs_fused: the CUDA kernel takes square windows of {MIN_WINDOW}-{MAX_WINDOW} px, "
+            f"got {wy}x{wx} (larger and non-square windows are listed in ROADMAP.md, queue B)"
+        )
+    if imgs.dim() != 3:
+        raise ValueError(f"piv_pairs_fused: frames must be [T, H, W], got shape {tuple(imgs.shape)}")
+    if imgs.dtype not in (torch.uint8, torch.float32):
+        imgs = imgs.to(torch.float32)
+    imgs = imgs.contiguous()
+    t, h, w = imgs.shape
+    n_pairs = t - 1 if pair_stride == 1 else t // pair_stride
+    if n_pairs < 1 or n_pairs > 65535:
+        raise ValueError(f"piv_pairs_fused: {n_pairs} pairs per launch; the kernel takes 1-65535")
+    device = imgs.device
+    cos_t, sin_t = _dft_tables(wx, device)
+    outs = [torch.empty((n_pairs, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(4)]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _library().piv_pairs_launch(
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, wx, steps[0], steps[1],
+            n_rows, n_cols, n_pairs, pair_stride,
+            int(signal_threshold is not None), float(signal_threshold or 0.0),
+            cos_t.data_ptr(), sin_t.data_ptr(),
+            *(o.data_ptr() for o in outs), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"piv_pairs_fused: CUDA kernel launch failed (cudaError {err})")
+    LAUNCHES += 1
+    return tuple(outs)
+
+
+def piv_pairs_fused(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    signal_threshold: Optional[float] = None,
+    pair_stride: int = 1,
+):
+    """Per-pair PIV: frames [T, H, W] -> (u, v, corr_max, s2n), each [n_pairs, n_rows, n_cols].
+
+    A CUDA tensor launches the CUDA kernel; a geometry the kernel does not
+    take raises. A CPU tensor runs :func:`piv_pairs_fused_plain`.
+    """
+    sas = win._as2(sas)
+    overlap = win._as2(overlap)
+    if pair_stride not in (1, 2):
+        raise ValueError(f"pair_stride must be 1 or 2, got {pair_stride}")
+    if tuple(imgs.shape[-2:]) != tuple(dim_size):
+        raise ValueError(f"frames of shape {tuple(imgs.shape)} do not match dim_size {tuple(dim_size)}")
+    steps = _grid_steps(dim_size, sas, overlap, n_rows, n_cols)
+    if imgs.device.type == "cuda":
+        out = _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride)
+        KERNEL_ROUTE["piv_pairs_fused"] = "cuda"
+        return out
+    if imgs.device.type != "cpu":
+        raise ValueError(f"piv_pairs_fused: no kernel for device {imgs.device}")
+    KERNEL_ROUTE["piv_pairs_fused"] = "plain_cpu"
+    return piv_pairs_fused_plain(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride)
+
+
+def piv_pairs_fused_plain(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    signal_threshold: Optional[float] = None,
+    pair_stride: int = 1,
+):
+    """The kernel's contract in plain PyTorch (``torch.fft``), on any device.
+
+    Built from :mod:`pyorc_tpu_torch.ops.piv` plus the two points where the
+    Pallas kernels differ from the XLA pipeline: ``u``/``v`` are NaN where a
+    window has zero variance, and ``s2n = max / max(mean, 1e-10)``.
+    """
+    if imgs.device.type == "cuda":
+        # TF32 keeps ~3 decimal digits, short of the 0.01 m/s velocity bar
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    sas = win._as2(sas)
+    overlap = win._as2(overlap)
+    wa, wb = piv_ops._pair_windows(imgs, dim_size, sas, overlap, pair_stride)
+    corr, valid = piv_ops._normalized_corr_planes(wa, wb)
+    flat = corr.flatten(-2)
+    cmax = flat.amax(dim=-1)
+    s2n = cmax / torch.clamp(flat.mean(dim=-1), min=1e-10)
+    u, v = piv_ops.u_v_displacement(corr, n_rows, n_cols)
+    shape = (-1, n_rows, n_cols)
+    invalid = ~valid.reshape(shape)
+    u = torch.where(invalid, torch.nan, u)
+    v = torch.where(invalid, torch.nan, v)
+    cmax = cmax.reshape(shape)
+    s2n = s2n.reshape(shape)
+    if signal_threshold is not None:
+        low = (piv_ops._pair_signal(wa, wb) < signal_threshold).reshape(shape)
+        u, v, cmax, s2n = (torch.where(low, torch.nan, x) for x in (u, v, cmax, s2n))
+    return u, v, cmax, s2n

@@ -1,0 +1,173 @@
+"""Streaming PIV over a frame stack: chunked host->device pipeline.
+
+Port of :mod:`pyorc_tpu.velocimetry.engine` (reference
+``pyorc/velocimetry/ffpiv.py:24-474``). Frames stream through the device in
+memory-sized chunks with a one-frame overlap; each chunk runs the per-pair
+PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`
+(the CUDA kernel on the GPU), and a device out-of-memory error splits the
+chunk in two. Ensemble correlation, multi-pass PIV and multi-device
+sharding are not ported yet (ROADMAP.md, queue A).
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import ndx
+from .._device import get_device
+from ..ops import piv_kernels
+from ..ops import windows as win
+
+__all__ = ["get_piv"]
+
+log = logging.getLogger(__name__)
+
+
+def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chunksize, memory_factor):
+    """Frames per chunk from the device-memory model. Reference ffpiv.py:118-139."""
+    if chunksize is None:
+        req = win.required_memory(n_frames, dim_size, window_size, overlap, search_area_size)
+        avail = win.available_memory() / memory_factor
+        chunks = int(req // avail) + 1
+        chunksize = int(np.ceil(n_frames / chunks))
+        if chunksize <= 5:
+            warnings.warn(
+                f"Memory availability is poor; chunk size automatically set to 5 (was {chunksize}).",
+                stacklevel=2,
+            )
+            chunksize = 5
+    if chunksize < 2:
+        raise OverflowError("Chunk size must be at least 2 frames.")
+    return int(chunksize)
+
+
+def _run_chunk_oom_backoff(fn, chunk, min_frames=3):
+    """Run fn(chunk) with halving splits on device OOM.
+
+    Mirrors the reference's shrinking-chunk retry (reference ffpiv.py:13-21):
+    a ``torch.cuda.OutOfMemoryError`` retries the chunk as two halves sharing
+    a one-frame overlap, recursively, and re-concatenates the per-pair
+    outputs.
+    """
+    try:
+        return fn(chunk)
+    except torch.cuda.OutOfMemoryError:
+        if chunk.shape[0] <= min_frames:
+            raise
+        warnings.warn(
+            f"Device OOM on a {chunk.shape[0]}-frame chunk; retrying as two halves.",
+            stacklevel=2,
+        )
+        mid = chunk.shape[0] // 2
+        left = _run_chunk_oom_backoff(fn, chunk[: mid + 1], min_frames)
+        right = _run_chunk_oom_backoff(fn, chunk[mid:], min_frames)
+        return tuple(np.concatenate([a, b], axis=0) for a, b in zip(left, right))
+
+
+def _iter_chunks(data, chunksize):
+    """Yield (start_pair_index, frames) with one-frame overlap between chunks.
+
+    ``data`` is an in-memory stack (numpy array or tensor); chunks are views.
+    """
+    n = data.shape[0]
+    start = 0
+    while start < n - 1:
+        end = min(start + chunksize, n)
+        yield start, data[start:end]
+        if end >= n:
+            break
+        start = end - 1
+
+
+def get_piv(
+    frames: ndx.DataArray,
+    y: np.ndarray,
+    x: np.ndarray,
+    dt: ndx.DataArray,
+    window_size: Tuple[int, int],
+    overlap: Tuple[int, int],
+    search_area_size: Tuple[int, int],
+    res_y: float,
+    res_x: float,
+    chunksize: Optional[int] = None,
+    memory_factor: float = 4,
+    ensemble_corr: bool = False,
+    signal_threshold: Optional[float] = None,
+    passes: int = 1,
+) -> ndx.Dataset:
+    """Time-resolved PIV over the frame stack -> Dataset(v_x, v_y, corr, s2n)."""
+    if ensemble_corr:
+        raise NotImplementedError(
+            "ensemble_corr=True is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 10)."
+        )
+    if passes > 1:
+        raise NotImplementedError(
+            "passes > 1 (multi-pass PIV) is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 11)."
+        )
+    dim_size = tuple(frames.shape[-2:])
+    n_frames = frames.shape[0]
+    sas = tuple(win._as2(search_area_size))
+    ov = tuple(win._as2(overlap))
+    n_rows, n_cols = len(y), len(x)
+    chunksize = _chunk_plan(n_frames, dim_size, window_size, ov, sas, chunksize, memory_factor)
+    return _piv_timestep(
+        frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
+        chunksize, signal_threshold, frames.attrs,
+    )
+
+
+def _piv_timestep(
+    data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
+    chunksize, signal_threshold, attrs,
+):
+    device = get_device()
+    dt_vals = np.asarray(dt.values if hasattr(dt, "values") else dt, dtype=np.float64)
+    n_pairs = data.shape[0] - 1
+
+    def run_one(chunk):
+        if torch.is_tensor(chunk):
+            frames = chunk.to(device)
+        else:
+            frames = torch.as_tensor(np.ascontiguousarray(chunk)).to(device)
+        out = piv_kernels.piv_pairs_fused(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
+        return tuple(o.cpu().numpy() for o in out)
+
+    us, vs, cms, s2ns = [], [], [], []
+    done = 0
+    for _start, chunk in _iter_chunks(data, chunksize):
+        u, v, cmax, s2n = _run_chunk_oom_backoff(run_one, chunk)
+        us.append(u)
+        vs.append(v)
+        cms.append(cmax)
+        s2ns.append(s2n)
+        done += chunk.shape[0] - 1
+        log.info("PIV (per frame pair): %d/%d", done, n_pairs)
+    u = np.concatenate(us, axis=0)
+    v = np.concatenate(vs, axis=0)
+    cmax = np.concatenate(cms, axis=0)
+    s2n = np.concatenate(s2ns, axis=0)
+    time = time_all[1:]
+    u = (u * res_x / dt_vals[:, None, None]).astype(np.float32)
+    v = (v * res_y / dt_vals[:, None, None]).astype(np.float32)
+    return _assemble_ds(s2n, cmax, u, v, time, y, x, attrs)
+
+
+def _assemble_ds(s2n, corr, u, v, time, y, x, attrs) -> ndx.Dataset:
+    from .. import const
+
+    ds = ndx.Dataset(
+        {
+            "s2n": (("time", "y", "x"), s2n.astype(np.float32), const.VARS_ATTRS["s2n"]),
+            "corr": (("time", "y", "x"), corr.astype(np.float32), const.VARS_ATTRS["corr"]),
+            "v_x": (("time", "y", "x"), u, const.VARS_ATTRS["v_x"]),
+            "v_y": (("time", "y", "x"), v, const.VARS_ATTRS["v_y"]),
+        },
+        coords={"time": np.asarray(time), "y": np.asarray(y), "x": np.asarray(x)},
+        attrs=dict(attrs),
+    )
+    return ds

@@ -1,0 +1,95 @@
+"""The CUDA kernel against its plain version on the card (skipped without one).
+
+Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pyorc_tpu_torch.ops import piv as piv_ops
+from pyorc_tpu_torch.ops import piv_kernels
+from pyorc_tpu_torch.ops import windows as win
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _frames(rng, n_frames, h, w, zero_band=False, dtype=np.uint8):
+    from scipy.ndimage import gaussian_filter, shift
+
+    base = gaussian_filter(rng.uniform(0, 1, (h, w)) ** 8, 1.2, mode="wrap")
+    base = base / base.max() * 220 + 20
+    stack = np.stack([shift(base, (-1.4 * i, 2.3 * i), order=3, mode="wrap") for i in range(n_frames)])
+    if zero_band:
+        stack[:, h // 2 :, :] = 0
+    return np.clip(stack, 0, 255).astype(dtype)
+
+
+def _compare(out_k, out_p, gap):
+    """NaN masks equal, |dcmax| <= 1e-4, s2n within 1e-3 relative, and u/v
+    within 1e-3 px where the top-2 peak gap exceeds 5e-3."""
+    for a, b in zip(out_k, out_p):
+        assert a.shape == b.shape
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.nan_to_num((out_k[2] - out_p[2]).abs()).max() <= 1e-4
+    assert torch.nan_to_num((out_k[3] - out_p[3]).abs() / out_p[3].abs().clamp(min=1e-6)).max() <= 1e-3
+    confident = (gap > 5e-3) & ~torch.isnan(out_p[0])
+    for a, b in zip(out_k[:2], out_p[:2]):
+        assert (a - b).abs()[confident].max() <= 1e-3
+
+
+def _gap(frames, dims, sas, overlap, pair_stride, shape):
+    return piv_ops.top2_gap(frames, dims, sas, overlap, pair_stride).reshape(shape)
+
+
+@pytest.mark.parametrize("size", [8, 16, 26, 32, 64])
+@pytest.mark.parametrize("pair_stride", [1, 2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_kernel_matches_plain(cuda, size, pair_stride, dtype):
+    rng = np.random.default_rng(size)
+    h, w = 4 * size + 20, 6 * size + 8
+    frames = torch.as_tensor(_frames(rng, 6, h, w, zero_band=size == 32, dtype=dtype), device=cuda)
+    sas, overlap = (size, size), (size // 2, size // 2)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    args = ((h, w), sas, overlap, n_rows, n_cols)
+    before = piv_kernels.LAUNCHES
+    out_k = piv_kernels.piv_pairs_fused(frames, *args, pair_stride=pair_stride)
+    assert piv_kernels.LAUNCHES == before + 1
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "cuda"
+    out_p = piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
+    torch.cuda.synchronize()
+    _compare(out_k, out_p, _gap(frames, (h, w), sas, overlap, pair_stride, out_p[0].shape))
+
+
+def test_kernel_signal_threshold(cuda):
+    rng = np.random.default_rng(1)
+    h, w = 96, 128
+    stack = _frames(rng, 3, h, w)
+    stack[:, :40, :48] = 0
+    stack[1, 40:72, 48:80] = 0
+    frames = torch.as_tensor(stack, device=cuda)
+    sas, overlap = (16, 16), (8, 8)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    args = ((h, w), sas, overlap, n_rows, n_cols, 0.5)
+    out_k = piv_kernels.piv_pairs_fused(frames, *args)
+    out_p = piv_kernels.piv_pairs_fused_plain(frames, *args)
+    assert torch.isnan(out_k[2]).any()
+    _compare(out_k, out_p, _gap(frames, (h, w), sas, overlap, 1, out_p[0].shape))
+
+
+def test_kernel_raises_on_unsupported_geometry(cuda):
+    frames = torch.zeros((3, 200, 200), device=cuda)
+    for sas in ((96, 96), (32, 16)):
+        overlap = (sas[0] // 2, sas[1] // 2)
+        n_rows, n_cols = win.get_field_shape((200, 200), sas, overlap)
+        with pytest.raises(ValueError, match="square windows"):
+            piv_kernels.piv_pairs_fused(frames, (200, 200), sas, overlap, n_rows, n_cols)

@@ -1,0 +1,125 @@
+"""The port's main path against the JAX package on the CPU: a 480x640,
+12-frame in-memory stack advected by a known sub-pixel shift goes through
+normalize -> project -> get_piv -> mask -> get_transect -> get_q ->
+get_river_flow in both packages (JAX with the Pallas kernels in interpret
+mode), and the results are held against each other and the analytic truth.
+The stack, the camera and the chain are those of ``chip_smoke.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import pyorc_tpu
+import pyorc_tpu_torch
+from pyorc_tpu.ops import piv_pallas
+from pyorc_tpu_torch.ops import piv_kernels
+
+import chip_smoke
+
+H_IMG, W_IMG, N_FRAMES = 480, 640, 12
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    pyorc_tpu_torch.set_device("cpu")
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def projected():
+    """(port cc, JAX cc, port projected frames, JAX projected frames)."""
+    pyorc_tpu_torch.set_device("cpu")
+    cc_t = chip_smoke.nadir_camera_config(H_IMG, W_IMG)
+    cc_j = pyorc_tpu.get_camera_config(cc_t.to_json())
+    stack = chip_smoke.advected_stack(H_IMG, W_IMG, N_FRAMES, "cpu")
+    proj_t = chip_smoke.frames_dataarray(stack, cc_t).frames.normalize(samples=15).frames.project()
+    proj_j = chip_smoke.frames_dataarray(stack, cc_j, pyorc_tpu).frames.normalize(samples=15).frames.project()
+    return cc_t, cc_j, proj_t, proj_j
+
+
+def test_normalize_project_identical(projected):
+    _, _, proj_t, proj_j = projected
+    np.testing.assert_array_equal(proj_t.values, np.asarray(proj_j.values))
+    for name in ("x", "y", "xs", "ys"):
+        np.testing.assert_array_equal(proj_t[name].values, proj_j[name].values)
+
+
+@pytest.mark.parametrize("window_size", chip_smoke.SLICE_WINDOWS)
+def test_slice_matches_jax_and_truth(projected, monkeypatch, window_size):
+    monkeypatch.setenv("PYORC_TPU_ENGINE", "fused-interpret")
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")  # conftest forces 8 CPU devices
+    cc_t, cc_j, proj_t, proj_j = projected
+    w_px = window_size + window_size % 2
+    piv_t, q_t = chip_smoke.run_chain(proj_t, window_size, cc_t, {})
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+    piv_j, q_j = chip_smoke.run_chain(proj_j, window_size, cc_j, {})
+    assert piv_pallas.KERNEL_ROUTE["piv_pairs_fused"] == "tileband_sf"
+    res_t = chip_smoke.check_chain(piv_t, q_t, cc_t, w_px)
+    res_j = chip_smoke.check_chain(piv_j, q_j, cc_j, w_px)
+    assert piv_t["v_x"].values.shape == np.asarray(piv_j["v_x"].values).shape == (N_FRAMES - 1,) + piv_t["v_x"].values.shape[1:]
+    for name in ("v_x", "v_y"):
+        assert abs(res_t[name] - res_j[name]) < 2e-3
+        assert abs(res_t[name] - res_t[name + "_true"]) < 0.02
+    assert abs(res_t["Q"] - res_j["Q"]) < 0.01 * abs(res_j["Q"])
+    assert res_t["Q"] > 0  # left-to-right section across a +x flow
+
+
+def test_profile_slice_covers_every_stage():
+    """The profiled slice reports each stage once; on the CPU no device work shows."""
+    stages = chip_smoke.profile_slice(H_IMG, W_IMG, 8, "cpu")
+    want = {"normalize", "project"} | {
+        f"{name}[{ws + ws % 2}px]" for ws in chip_smoke.SLICE_WINDOWS for name in ("get_piv", "mask", "transect_q_flow")
+    }
+    assert set(stages) == want
+    for row in stages.values():
+        assert row["wall_ms"] > 0 and row["device_ms"] == row["copy_ms"] == 0.0 and row["idle"] == 1.0
+
+
+def test_engine_takes_tensor_stacks(projected):
+    """The engine streams a stack held as a tensor like one held as numpy,
+    and 5-frame chunks (one-frame overlap) give the single chunk's result."""
+    from pyorc_tpu_torch import ndx
+
+    _, _, proj_t, _ = projected
+    kwargs = dict(window_size=25, overlap=(13, 13), chunksize=5)
+    want = proj_t.frames.get_piv(**kwargs)
+    as_tensor = ndx.DataArray(
+        torch.as_tensor(proj_t.values), dims=proj_t.dims,
+        coords={k: proj_t[k].values for k in ("time", "y", "x")}, attrs=dict(proj_t.attrs),
+    )
+    for name in ("xs", "ys"):
+        as_tensor._coords[name] = proj_t._coords[name]
+    got = as_tensor.frames.get_piv(**kwargs)
+    whole = proj_t.frames.get_piv(window_size=25, overlap=(13, 13))
+    assert want["v_x"].values.shape[0] == N_FRAMES - 1
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        np.testing.assert_array_equal(got[name].values, want[name].values)
+        np.testing.assert_array_equal(whole[name].values, want[name].values)
+
+
+def test_mask_transect_discharge_identical(projected, monkeypatch):
+    """Given the same PIV fields, the port's mask -> transect -> discharge
+    chain (host numpy on its own ndx copy) gives the JAX package's numbers."""
+    from pyorc_tpu_torch import ndx
+
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    cc_t, cc_j, _, proj_j = projected
+    piv_j = proj_j.frames.get_piv(window_size=25, overlap=(13, 13))
+    piv_t = ndx.Dataset(
+        {k: (v.dims, np.asarray(v.values), dict(v.attrs)) for k, v in piv_j.data_vars.items()},
+        coords={k: (c.dims, np.asarray(c.values), dict(c.attrs)) for k, c in piv_j.coords.items()},
+        attrs=dict(piv_j.attrs),
+    )
+    outs = []
+    for piv, cc in ((piv_t, cc_t), (piv_j, cc_j)):
+        masked = piv.velocimetry.mask(
+            [piv.velocimetry.mask.minmax(), piv.velocimetry.mask.corr(), piv.velocimetry.mask.count()]
+        )
+        q = masked.velocimetry.get_transect(*chip_smoke.transect_points(cc)).transect.get_q(fill_method="interpolate")
+        q.transect.get_river_flow()
+        outs.append((masked, q))
+    (m_t, q_t), (m_j, q_j) = outs
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        np.testing.assert_array_equal(m_t[name].values, np.asarray(m_j[name].values))
+    for name in ("v_eff", "q", "river_flow"):
+        np.testing.assert_array_equal(q_t[name].values, np.asarray(q_j[name].values))
