@@ -4,33 +4,45 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi``), the torch and CUDA versions, and builds
-   the CUDA kernel from ``pyorc_tpu_torch/csrc/`` into ``build/``.
-2. Kernel phase: particle frames of 1088x1920, 9 frames with a known
-   sub-pixel shift, at 16, 26 and 64 px windows. The kernel is held against
-   its plain PyTorch version on the card and both are timed (CUDA events,
-   median of 10 runs after warm-up).
-3. Slice phase, at the geul recipe's scale: a 1920x1080, 126-frame
+   the CUDA kernels from ``pyorc_tpu_torch/csrc/`` into one library under
+   ``build/``.
+2. Per-pair kernel phase: particle frames of 1088x1920, 9 frames with a
+   known sub-pixel shift, at 16, 26 and 64 px windows. The kernel is held
+   against its plain PyTorch version on the card and both are timed (CUDA
+   events, median of 10 runs after warm-up).
+3. Ensemble kernel phase: the same texture, 65 frames (64 pairs), at 16, 26,
+   32 and 64 px; the ensemble kernel against its plain version, both timed.
+4. Per-pair slice, at the geul recipe's scale: a 1920x1080, 126-frame
    in-memory stack advected (2.3, -1.4) px/frame through normalize ->
    project -> get_piv (16 and 26 px) -> mask -> get_transect -> get_q ->
    get_river_flow, checked against the analytic velocity and discharge.
-   The kernel's launches in this run are counted.
-4. Main-path kernel check: the projected stack the slice gave the kernel is
-   run through the kernel and its plain version again, at the slice's window
-   grids, and the two are held to each other; the kernel's output must also
-   be the velocity field the slice produced.
-5. Prints one JSON line about the kernel, then the last line
+   The per-pair kernel's launches in this run are counted.
+5. Per-pair main-path check: the projected stack the slice gave the kernel
+   is run through the kernel and its plain version again, at the slice's
+   window grids; the kernel's output must also be the velocity field the
+   slice produced. Both are timed at 16 px.
+6. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
+   the nadir camera of ``bench_e2e.py``) cut to 10 s: a 3840x2160, 300-frame
+   stack through normalize -> project -> get_piv(64 px, ensemble_corr=True)
+   -> spatial masks -> get_transect -> get_q -> get_river_flow, checked
+   against the analytic velocity (5 %) and discharge (10 %). The ensemble
+   kernel's launches in this run are counted.
+7. Ensemble main-path check: the projected 4K stack through the ensemble
+   kernel and its plain version again, held to each other, and the slice's
+   velocities held to the kernel's mean-plane displacements; both timed.
+8. Prints one JSON line about the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-instead runs the slice once under ``torch.profiler`` and prints, per stage,
-the wall time, the device's busy time (kernels and copies) and its idle
-share; the raw per-stage numbers go to ``build/profile_slice.json``.
+instead runs both slices once under ``torch.profiler`` and prints, per
+stage, the wall time, the device's busy time (kernels and copies) and its
+idle share; the raw per-stage numbers go to ``build/profile_slice.json``.
 
 Every phase raises on failure. Without CUDA, or without the package beside
 it, the script exits with an error and prints no result. The functions
 below also run on the CPU at small sizes, which is how the test suite
-rehearses the slice without a card.
+rehearses the slices without a card.
 """
 
 from __future__ import annotations
@@ -56,6 +68,21 @@ SLICE_WINDOWS = (15, 25)  # recipe window sizes; rounded to 16 and 26 px, run at
 # (check_chain): on this input about 6 % (16 px) and 4 % (26 px) in v_x.
 VEL_TOL = {16: 0.03, 26: 0.02}  # median velocity [m/s], as tests/test_velocity_parity.py:136
 Q_TOL = 0.10  # relative, median discharge against 0.9 * v_perp * wetted area
+
+# The ensemble slice: bench_e2e.py's 4K nadir camera at 30 fps, 300 frames
+# (bench_e2e.py --seconds 10), 64 px windows at 50 % overlap.
+ENS_SHAPE = (2160, 3840)
+ENS_FPS = 30.0
+ENS_FRAMES = 300
+ENS_WINDOW = 64
+ENS_CAMERA = {"f": 6000.0, "gcp_px": 200, "aoi_px": 300}
+ENS_VEL_RTOL = 0.05  # median v_x, v_y against the analytic values, relative
+ENS_KERNEL_SIZES = (16, 26, 32, 64)
+CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
+
+# H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def make_texture(rng, h, w, density=0.03, sigma=0.8):
@@ -101,28 +128,30 @@ def advected_stack(h, w, n_frames, device, seed=7):
     return out
 
 
-def nadir_camera_config(h, w):
-    """Overhead camera, no distortion, RES m/px at z=0; AOI 100 px inside the frame."""
+def nadir_camera_config(h, w, f=1000.0, gcp_px=60, aoi_px=100, window_size=32):
+    """Overhead camera, no distortion, RES m/px at z=0; GCPs ``gcp_px`` and
+    the AOI ``aoi_px`` inside the frame's edges. ``f=6000, gcp_px=200,
+    aoi_px=300, window_size=64`` at 2160x3840 is ``bench_e2e.nadir_config``."""
     from pyorc_tpu_torch import CameraConfig
 
-    f = 1000.0
-    src = [[60, 60], [w - 60, 60], [w - 60, h - 60], [60, h - 60]]
+    src = [[gcp_px, gcp_px], [w - gcp_px, gcp_px], [w - gcp_px, h - gcp_px], [gcp_px, h - gcp_px]]
     dst = [[RES * c, RES * (h - r)] for c, r in src]
     cc = CameraConfig(
         height=h,
         width=w,
         resolution=RES,
-        window_size=32,
+        window_size=window_size,
         gcps={"src": src, "dst": dst, "h_ref": 0.0, "z_0": 0.0},
         camera_matrix=[[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]],
         dist_coeffs=[[0.0]] * 5,
         stabilize=None,
     )
-    cc.set_bbox_from_corners([[100, 100], [w - 100, 100], [w - 100, h - 100], [100, h - 100]])
+    a = aoi_px
+    cc.set_bbox_from_corners([[a, a], [w - a, a], [w - a, h - a], [a, h - a]])
     return cc
 
 
-def frames_dataarray(stack, cc, pkg=None):
+def frames_dataarray(stack, cc, pkg=None, fps=FPS):
     """The in-memory frame stack as ``Video.get_frames`` builds it, as an
     ``ndx.DataArray`` of ``pkg`` (default ``pyorc_tpu_torch``; the tests pass
     the JAX package to build its twin)."""
@@ -133,7 +162,7 @@ def frames_dataarray(stack, cc, pkg=None):
     y = np.flipud(np.arange(h)).astype(np.float64)
     x = np.arange(w).astype(np.float64)
     xp, yp = np.meshgrid(x, y)
-    coords = {"time": np.arange(n) / FPS, "y": y, "x": x}
+    coords = {"time": np.arange(n) / fps, "y": y, "x": x}
     attrs = {
         "camera_shape": str([h, w]),
         "camera_config": cc.to_json(),
@@ -145,25 +174,26 @@ def frames_dataarray(stack, cc, pkg=None):
     return da
 
 
-def expected_velocity(cc):
+def expected_velocity(cc, fps=FPS):
     """Analytic (v_x, v_y) [m/s]: a displaced pixel pair unprojected to the water plane."""
     p0 = np.array([[cc.width / 2, cc.height / 2]])
     p1 = p0 + np.array([SHIFT])
     w0 = cc.unproject_points(p0, zs=0.0)[0]
     w1 = cc.unproject_points(p1, zs=0.0)[0]
-    return (w1[0] - w0[0]) * FPS, (w1[1] - w0[1]) * FPS
+    return (w1[0] - w0[0]) * fps, (w1[1] - w0[1]) * fps
 
 
-def transect_points(cc, n_points=25, margin_px=64):
+def transect_points(cc, n_points=25, margin_px=64, aoi_px=100):
     """A cross-section across the flow, left bank (+y) to right bank, over a parabolic bed.
 
-    Every point lies at least ``margin_px`` inside the AOI; the bed rises
-    0.1 m above the water level at both banks and is 1.4 m deep mid-channel.
+    Every point lies at least ``margin_px`` inside the AOI (``aoi_px`` inside
+    the frame's edges); the bed rises 0.1 m above the water level at both
+    banks and is 1.4 m deep mid-channel.
     """
     h, w = cc.height, cc.width
     x_mid = RES * w / 2
-    y_top = RES * (h - 100 - margin_px)
-    y_bot = RES * (100 + margin_px)
+    y_top = RES * (h - aoi_px - margin_px)
+    y_bot = RES * (aoi_px + margin_px)
     y = np.linspace(y_top, y_bot, n_points)
     x = np.full(n_points, x_mid)
     t = np.linspace(-1.0, 1.0, n_points)
@@ -182,31 +212,36 @@ def _stage(times, name):
     times[name] = time.perf_counter() - t0
 
 
-def run_chain(frames_proj, window_size, cc, times, tag=""):
+def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False):
     """get_piv at 50 % overlap -> mask -> get_transect -> get_q -> get_river_flow.
 
+    With ``ensemble=True`` get_piv averages the correlation planes of all
+    pairs (one time step), and the masks are the spatial ones that act on a
+    single step (minmax, corr, window_mean) instead of minmax, corr, count.
     Returns the PIV (before masking) and discharge datasets; the stage
     times go into ``times`` under their names plus ``tag``.
     """
     w_px = window_size + window_size % 2
     with _stage(times, "get_piv" + tag):
-        piv = frames_proj.frames.get_piv(window_size=window_size, overlap=(w_px // 2, w_px // 2))
+        piv = frames_proj.frames.get_piv(
+            window_size=window_size, overlap=(w_px // 2, w_px // 2), ensemble_corr=ensemble
+        )
     with _stage(times, "mask" + tag):
-        masks = [
-            piv.velocimetry.mask.minmax(),
-            piv.velocimetry.mask.corr(),
-            piv.velocimetry.mask.count(),
-        ]
+        mask = piv.velocimetry.mask
+        masks = [mask.minmax(), mask.corr(), mask.window_mean() if ensemble else mask.count()]
         piv_masked = piv.velocimetry.mask(masks)
     with _stage(times, "transect_q_flow" + tag):
-        transect = piv_masked.velocimetry.get_transect(*transect_points(cc))
+        transect = piv_masked.velocimetry.get_transect(*transect_points(cc, aoi_px=aoi_px))
         q = transect.transect.get_q(fill_method="interpolate")
         q.transect.get_river_flow()
     return piv, q
 
 
-def check_chain(piv, q, cc, w_px):
+def check_chain(piv, q, cc, w_px, rel_tol=None, fps=FPS):
     """Check one window size's chain against the analytic truth; returns the numbers checked.
+
+    The median velocities are held to the truth within ``VEL_TOL[w_px]``
+    [m/s] or, with ``rel_tol``, within that share of each true component.
 
     The per-pair estimator reads displacements low: two un-padded windows
     share fewer particles the further they are shifted, which tilts the
@@ -219,14 +254,17 @@ def check_chain(piv, q, cc, w_px):
     area`` with ``v_perp`` from the analytic velocity, which also pins the
     sign convention.
     """
-    vx_true, vy_true = expected_velocity(cc)
+    vx_true, vy_true = expected_velocity(cc, fps)
     for name in ("v_x", "v_y", "corr", "s2n"):
         if piv[name].values.shape != piv["v_x"].values.shape or piv[name].values.ndim != 3:
             raise AssertionError(f"{name}: unexpected shape {piv[name].values.shape}")
     vx = float(np.nanmedian(piv["v_x"].values))
     vy = float(np.nanmedian(piv["v_y"].values))
-    tol = VEL_TOL[w_px]
-    if not (abs(vx - vx_true) < tol and abs(vy - vy_true) < tol):
+    if rel_tol is None:
+        tol_x = tol_y = VEL_TOL[w_px]
+    else:
+        tol_x, tol_y = rel_tol * abs(vx_true), rel_tol * abs(vy_true)
+    if not (abs(vx - vx_true) < tol_x and abs(vy - vy_true) < tol_y):
         raise AssertionError(f"{w_px} px: median velocity ({vx}, {vy}) vs truth ({vx_true}, {vy_true})")
     xs, ys = q["xcoords"].values, q["ycoords"].values
     tx, ty = xs[-1] - xs[0], ys[-1] - ys[0]
@@ -269,6 +307,31 @@ def slice_phase(h, w, n_frames, device):
     return results, times, proj, pivs
 
 
+def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
+    """Drive the port's ensemble path: the nadir camera ``camera`` (see
+    nadir_camera_config) at ENS_FPS, ENS_WINDOW px windows at 50 % overlap.
+
+    Returns (results, stage times, projected frames, PIV dataset before masking).
+    """
+    import pyorc_tpu_torch
+
+    pyorc_tpu_torch.set_device(device)
+    cc = nadir_camera_config(h, w, window_size=ENS_WINDOW, **camera)
+    da = frames_dataarray(advected_stack(h, w, n_frames, device), cc, fps=ENS_FPS)
+    times = {}
+    with _stage(times, "normalize[ens]"):
+        norm = da.frames.normalize(samples=15)
+    del da
+    with _stage(times, "project[ens]"):
+        proj = norm.frames.project()
+    del norm
+    piv, q = run_chain(proj, ENS_WINDOW, cc, times, "[ens]", aoi_px=camera["aoi_px"], ensemble=True)
+    if piv["v_x"].values.shape[0] != 1:
+        raise AssertionError(f"ensemble PIV has {piv['v_x'].values.shape[0]} time steps, not 1")
+    results = check_chain(piv, q, cc, ENS_WINDOW, rel_tol=ENS_VEL_RTOL, fps=ENS_FPS)
+    return results, times, proj, piv
+
+
 def _median_ms(fn, reps=10):
     import torch
 
@@ -286,14 +349,60 @@ def _median_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def compare_kernel(frames, args, label, piece=25):
-    """The kernel against its plain version on the same frames; returns (kernel outputs, errors).
+def _plain_pairs(frames, args, piece=25):
+    """The per-pair plain version over ``frames``, ``piece`` pairs at a time to bound its memory."""
+    import torch
+
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    pieces = [
+        piv_kernels.piv_pairs_fused_plain(frames[start : start + piece + 1], *args)
+        for start in range(0, frames.shape[0] - 1, piece)
+    ]
+    return [torch.cat(p) for p in zip(*pieces)]
+
+
+def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
+    """The least time the card could take for a PIV kernel's work on these inputs.
+
+    Operations are those of the FFT algorithm, whatever implements them:
+    per frame window one real 2-D FFT (2.5 N log2 N for N = w^2 points) plus
+    the demean and variance (3 N); per window pair one inverse real FFT, the
+    spectral product (3 N) and the plane's normalization, clip, max and sum
+    (4 N), plus ``per_pair_extra`` N. Bytes: the frames read once and
+    ``out_bytes`` written once. Returns (bound_ms, "operations" or "bytes").
+    """
+    import math
+
+    _, sas, _, n_rows, n_cols = args
+    n_pix = sas[0] * sas[1]
+    fft = 2.5 * n_pix * math.log2(n_pix)
+    n_win = n_rows * n_cols
+    flops = n_win * (frames.shape[0] * (fft + 3 * n_pix) + n_pairs * (fft + (7 + per_pair_extra) * n_pix))
+    n_bytes = frames.numel() * frames.element_size() + out_bytes
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pairs_bound(frames, args):
+    n_pairs = frames.shape[0] - 1
+    return work_bound(frames, args, n_pairs, 4 * 4 * n_pairs * args[3] * args[4])
+
+
+def ensemble_bound(frames, args):
+    n_pairs, n_win = frames.shape[0] - 1, args[3] * args[4]
+    out_bytes = 4 * (n_win * args[1][0] * args[1][1] + n_win + 2 * n_pairs * n_win)
+    return work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=1)
+
+
+def compare_kernel(frames, args, label):
+    """The per-pair kernel against its plain version on the same frames; returns (kernel outputs, errors).
 
     The kernel runs in one launch over all of ``frames``, as the engine calls
-    it; the plain version runs ``piece`` pairs at a time to bound its memory.
-    ``args`` are ``(dim_size, sas, overlap, n_rows, n_cols)``. Raises unless
-    the NaN masks are equal, |d cmax| <= 1e-4, s2n agrees to 1e-3 relative
-    and |d u|, |d v| <= 1e-3 px on windows whose top-2 peak gap exceeds 5e-3.
+    it. ``args`` are ``(dim_size, sas, overlap, n_rows, n_cols)``. Raises
+    unless the NaN masks are equal, |d cmax| <= 1e-4, s2n agrees to 1e-3
+    relative and |d u|, |d v| <= 1e-3 px on windows whose top-2 peak gap
+    exceeds 5e-3.
     """
     import torch
 
@@ -303,14 +412,9 @@ def compare_kernel(frames, args, label, piece=25):
     kern = piv_kernels.piv_pairs_fused(frames, *args)
     if piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] != "cuda":
         raise AssertionError("piv_pairs_fused did not take the CUDA kernel")
-    pieces, gaps = [], []
-    for start in range(0, frames.shape[0] - 1, piece):
-        sub = frames[start : start + piece + 1]
-        pieces.append(piv_kernels.piv_pairs_fused_plain(sub, *args))
-        gaps.append(piv_ops.top2_gap(sub, *args[:3]))
-    plain = [torch.cat(p) for p in zip(*pieces)]
     u_k, v_k, c_k, s_k = kern
-    u_p, v_p, c_p, s_p = plain
+    u_p, v_p, c_p, s_p = _plain_pairs(frames, args)
+    gaps = [piv_ops.top2_gap(frames[i : i + 26], *args[:3]) for i in range(0, frames.shape[0] - 1, 25)]
     for name, a, b in (("u", u_k, u_p), ("v", v_k, v_p), ("cmax", c_k, c_p), ("s2n", s_k, s_p)):
         if a.shape != b.shape or not torch.equal(torch.isnan(a), torch.isnan(b)):
             raise AssertionError(f"{label} {name}: shapes or NaN masks differ")
@@ -328,6 +432,74 @@ def compare_kernel(frames, args, label, piece=25):
     return kern, errors
 
 
+def _mean_plane_uv(corr_sum, count, n_rows, n_cols):
+    """(u, v) [n_rows, n_cols] of the mean planes, and each mean plane's top-2 peak gap."""
+    import torch
+
+    from pyorc_tpu_torch.ops import piv as piv_ops
+
+    mean = corr_sum / count.clamp(min=1)[:, None, None]
+    u, v = piv_ops.u_v_displacement(mean[None], n_rows, n_cols)
+    top2 = torch.topk(mean.flatten(-2), 2, dim=-1).values
+    return u[0], v[0], (top2[:, 0] - top2[:, 1]).reshape(n_rows, n_cols)
+
+
+def compare_ensemble(frames, args, label, corr_min=CORR_MIN, s2n_min=S2N_MIN):
+    """The ensemble kernel against its plain version on the same frames; returns (kernel outputs, errors).
+
+    A window pair whose cmax lies within 1e-5 of ``corr_min``, or whose s2n
+    within 1e-4 relative of ``s2n_min``, may pass the gate in one version and
+    not the other (a gate flip); any other flip raises. On windows without a
+    flip, the counts must be equal and |d corr_sum| <= 1e-4 * max(count, 1).
+    On pairs gated alike, |d cmax| <= 1e-4 and s2n agrees to 1e-3 relative.
+    The mean planes' u/v agree to 1e-3 px where their top-2 peak gap exceeds
+    5e-3. ``corr_min`` must be positive: a pair is ok where its gated cmax is.
+    """
+    import torch
+
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    if corr_min <= 0:
+        raise ValueError(f"compare_ensemble needs corr_min > 0, got {corr_min}")
+    kern = piv_kernels.piv_ensemble_fused(frames, *args, corr_min, s2n_min)
+    if piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] != "cuda":
+        raise AssertionError("piv_ensemble_fused did not take the CUDA kernel")
+    plain = piv_kernels.piv_ensemble_fused_plain(frames, *args, corr_min, s2n_min)
+    for name, a, b in zip(("corr_sum", "count", "cmax", "s2n"), kern, plain):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}, or not finite")
+    (sum_k, n_k, c_k, s_k), (sum_p, n_p, c_p, s_p) = kern, plain
+    ok_k, ok_p = c_k > 0, c_p > 0
+    flip = ok_k != ok_p
+    cm, sn = torch.where(ok_k, c_k, c_p), torch.where(ok_k, s_k, s_p)
+    near = ((cm - corr_min).abs() <= 1e-5) | ((sn - s2n_min).abs() <= 1e-4 * s2n_min)
+    if (flip & ~near).any():
+        raise AssertionError(f"{label}: {int((flip & ~near).sum())} gate flips away from the thresholds")
+    steady = ~flip.flatten(1).any(0)  # windows without a flip
+    d_sum = (sum_k - sum_p).abs().flatten(1).amax(1)
+    same = ~flip & ok_p
+    d_cmax = float((c_k - c_p).abs()[same].max())
+    rel_s2n = float(((s_k - s_p).abs() / s_p.clamp(min=1e-6))[same].max())
+    n_rows, n_cols = args[3], args[4]
+    u_k, v_k, _ = _mean_plane_uv(sum_k, n_k, n_rows, n_cols)
+    u_p, v_p, gap = _mean_plane_uv(sum_p, n_p, n_rows, n_cols)
+    confident = (gap > 5e-3) & (n_p > 0).reshape(gap.shape) & steady.reshape(gap.shape)
+    if not confident.any():
+        raise AssertionError(f"{label}: no window with a confident mean-plane peak")
+    d_uv = float(torch.maximum((u_k - u_p).abs(), (v_k - v_p).abs())[confident].max())
+    if not torch.equal(n_k[steady], n_p[steady]) or (d_sum > 1e-4 * n_p.clamp(min=1))[steady].any():
+        raise AssertionError(f"{label}: counts or corr_sum differ, max |d sum| {float(d_sum[steady].max())}")
+    if d_cmax > 1e-4 or rel_s2n > 1e-3 or d_uv > 1e-3:
+        raise AssertionError(f"{label}: kernel vs plain |dcmax|={d_cmax} rel ds2n={rel_s2n} |duv|={d_uv}")
+    errors = {
+        "n_pairs": c_k.shape[0], "n_windows": n_rows * n_cols, "gate_flips": int(flip.sum()),
+        "ok_share": float(ok_p.float().mean()), "max_abs_dsum": float(d_sum[steady].max()),
+        "max_abs_dcmax": d_cmax, "max_rel_ds2n": rel_s2n, "max_abs_duv_px": d_uv,
+        "confident_share": float(confident.float().mean()),
+    }
+    return kern, errors
+
+
 def _grid(dim_size, w_px):
     """(dim_size, sas, overlap, n_rows, n_cols) of square w_px windows at 50 % overlap."""
     from pyorc_tpu_torch.ops import windows as win
@@ -337,7 +509,7 @@ def _grid(dim_size, w_px):
 
 
 def kernel_phase(device):
-    """Kernel vs plain version on the card at 16/26/64 px, both timed; returns per-size numbers."""
+    """Per-pair kernel vs plain version on the card at 16/26/64 px, both timed; returns per-size numbers."""
     import torch
 
     from pyorc_tpu_torch.ops import piv_kernels
@@ -350,17 +522,40 @@ def kernel_phase(device):
         _, out[size] = compare_kernel(frames, args, f"kernel phase {size} px")
         out[size]["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args))
         out[size]["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args))
+        out[size]["bound_ms"], out[size]["bound_by"] = pairs_bound(frames, args)
         print(f"kernel {size} px: {json.dumps(out[size])}", flush=True)
     return out
 
 
-def main_path_check(proj, pivs, device):
-    """The kernel against its plain version on the stack and grids the slice gave it.
+def ensemble_kernel_phase(device):
+    """Ensemble kernel vs plain version at 1088x1920, 65 frames, 16/26/32/64 px, both timed."""
+    import torch
+
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    h, w, n_frames = 1088, 1920, 65
+    frames = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
+    out = {}
+    for size in ENS_KERNEL_SIZES:
+        args = _grid((h, w), size)
+        _, out[size] = compare_ensemble(frames, args, f"ensemble kernel phase {size} px")
+        out[size]["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args))
+        out[size]["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
+        out[size]["bound_ms"], out[size]["bound_by"] = ensemble_bound(frames, args)
+        print(f"ensemble kernel {size} px: {json.dumps(out[size])}", flush=True)
+    return out
+
+
+def main_path_check(proj, pivs, device, reps=10):
+    """The per-pair kernel against its plain version on the stack and grids the slice gave it.
 
     Also checks that the slice's (unmasked) velocities are the kernel's
-    displacements scaled by the resolution and the frame interval.
+    displacements scaled by the resolution and the frame interval, and
+    times kernel and plain version on that stack (median of ``reps``).
     """
     import torch
+
+    from pyorc_tpu_torch.ops import piv_kernels
 
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
     dt = np.diff(proj["time"].values)[:, None, None]
@@ -372,7 +567,50 @@ def main_path_check(proj, pivs, device):
         for name, disp in (("v_x", u), ("v_y", v)):
             want = (disp.cpu().numpy() * RES / dt).astype(np.float32)
             np.testing.assert_allclose(piv[name].values, want, rtol=1e-6, atol=0, err_msg=f"{label} {name}")
+        if device != "cpu":
+            out[w_px]["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args), reps)
+            out[w_px]["plain_ms"] = _median_ms(lambda: _plain_pairs(frames, args), reps)
+        out[w_px]["bound_ms"], out[w_px]["bound_by"] = pairs_bound(frames, args)
         print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out[w_px])}", flush=True)
+    return out
+
+
+def ensemble_main_path_check(proj, piv, device, reps=3):
+    """The ensemble kernel against its plain version on the projected stack the slice gave it.
+
+    The kernel runs in one launch over the whole stack (the engine may have
+    cut it into chunks, which changes only the order of the float sums), so
+    the slice's unmasked v_x / v_y are held to the kernel's mean-plane
+    displacements times RES / mean dt within 1e-3 px where the mean plane's
+    top-2 gap exceeds 5e-3, and low-count cells must be NaN. Times kernel
+    and plain version on the stack (median of ``reps``).
+    """
+    import torch
+
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
+    args = _grid(frames.shape[1:], ENS_WINDOW)
+    label = f"ensemble main path {ENS_WINDOW} px"
+    (corr_sum, count, _, _), out = compare_ensemble(frames, args, label)
+    u, v, gap = _mean_plane_uv(corr_sum, count, args[3], args[4])
+    low = (count < COUNT_MIN * (frames.shape[0] - 1)).reshape(gap.shape).cpu().numpy()
+    confident = ((gap > 5e-3).cpu().numpy()) & ~low
+    scale = RES / float(np.diff(proj["time"].values).mean())
+    for name, disp in (("v_x", u), ("v_y", v)):
+        got = piv[name].values[0]
+        want = disp.cpu().numpy() * scale
+        if not np.isnan(got[low]).all() or np.isnan(got[~low]).any():
+            raise AssertionError(f"{label} {name}: NaN cells are not the low-count cells")
+        d = float(np.abs(got - want)[confident].max())
+        if d > 1e-3 * scale:
+            raise AssertionError(f"{label} {name}: slice vs kernel mean-plane velocity differ by {d} m/s")
+    if device != "cpu":
+        out["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args), reps)
+        out["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args), reps)
+    out["bound_ms"], out["bound_by"] = ensemble_bound(frames, args)
+    out["low_count_share"] = float(low.mean())
+    print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -387,13 +625,15 @@ def _union_ms(intervals, rng):
     return total / 1e3
 
 
-def profile_slice(h, w, n_frames, device):
-    """Run the slice under ``torch.profiler``; returns per-stage times [ms] and idle share.
+def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
+    """Run both slices under ``torch.profiler``; returns per-stage times [ms] and idle share.
 
-    A stage's device time is the union of the device events (kernels and
-    copies) that fall inside its host time range; every stage ends with a
-    copy to the host, so its device work finishes inside that range.
-    ``copy_ms`` is the part spent in host<->device copies.
+    ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
+    per-pair and the ensemble slice. A stage's device time is the union of
+    the device events (kernels and copies) that fall inside its host time
+    range; every stage ends with a copy to the host, so its device work
+    finishes inside that range. ``copy_ms`` is the part spent in
+    host<->device copies.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -402,7 +642,9 @@ def profile_slice(h, w, n_frames, device):
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        _, times, _, _ = slice_phase(h, w, n_frames, device)
+        _, times, _, _ = slice_phase(*slice_shape, device)
+        _, ens_times, _, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
+    times.update(ens_times)
     events = prof.events()
     ranges = {e.name: e.time_range for e in events if e.name in times and e.device_type.name == "CPU"}
     device_events = [e for e in events if e.device_type.name == "CUDA" and e.name not in times]
@@ -427,6 +669,18 @@ def _print_card(torch):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
 
+def _drive(piv_kernels, kernel, run):
+    """Run one main path with every launch count at 0; returns (its result, the kernel's launches)."""
+    for name in piv_kernels.LAUNCHES:
+        piv_kernels.LAUNCHES[name] = 0
+    out = run()
+    launches = piv_kernels.LAUNCHES[kernel]
+    route = piv_kernels.KERNEL_ROUTE.get(f"{kernel}_fused")
+    if launches <= 0 or route != "cuda":
+        raise AssertionError(f"main path did not run the {kernel} CUDA kernel (launches={launches}, route={route})")
+    return out, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -448,7 +702,7 @@ def main(argv) -> int:
         print(log_file.read_text().strip())
 
     if "--profile" in argv:
-        stages = profile_slice(1080, 1920, 126, device)
+        stages = profile_slice(device, (1080, 1920, 126), (*ENS_SHAPE, ENS_FRAMES))
         (ROOT / "build").mkdir(exist_ok=True)
         (ROOT / "build" / "profile_slice.json").write_text(json.dumps(stages, indent=1))
         for name, row in stages.items():
@@ -457,32 +711,47 @@ def main(argv) -> int:
         return 0
 
     kern = kernel_phase(device)
+    ens_kern = ensemble_kernel_phase(device)
 
-    piv_kernels.LAUNCHES = 0
     t0 = time.perf_counter()
-    results, times, proj, pivs = slice_phase(1080, 1920, 126, device)
+    (results, times, proj, pivs), pairs_launches = _drive(
+        piv_kernels, "piv_pairs", lambda: slice_phase(1080, 1920, 126, device)
+    )
     wall = time.perf_counter() - t0
-    launches = piv_kernels.LAUNCHES
-    if launches <= 0 or piv_kernels.KERNEL_ROUTE.get("piv_pairs_fused") != "cuda":
-        raise AssertionError(f"main path did not run the CUDA kernel (launches={launches})")
     print(f"slice 1920x1080x126: wall {wall:.3f} s; stages " + json.dumps({k: round(v, 4) for k, v in times.items()}))
     print("slice results " + json.dumps(results))
-
     main_errs = main_path_check(proj, pivs, device)
+    del proj, pivs
+
+    h, w = ENS_SHAPE
+    t0 = time.perf_counter()
+    (ens_results, ens_times, ens_proj, ens_piv), ens_launches = _drive(
+        piv_kernels, "piv_ensemble", lambda: ensemble_slice_phase(h, w, ENS_FRAMES, device)
+    )
+    wall = time.perf_counter() - t0
+    print(f"ensemble slice {w}x{h}x{ENS_FRAMES}: wall {wall:.3f} s; {ens_launches} launches; stages "
+          + json.dumps({k: round(v, 4) for k, v in ens_times.items()}))
+    print("ensemble slice results " + json.dumps(ens_results))
+    ens_main = ensemble_main_path_check(ens_proj, ens_piv, device)
 
     main_size = 16
-    record = {
-        "kernels": [{
-            "name": "piv_pairs",
-            "route": "cuda",
-            "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
-            "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
-            "launches": launches,
+    record = {"kernels": [
+        {
+            "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:957", "launches": pairs_launches,
             "max_abs_err": max(e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values()]),
-            "ms": kern[main_size]["ms"],
-            "plain_ms": kern[main_size]["plain_ms"],
-        }]
-    }
+            "ms": main_errs[main_size]["ms"], "plain_ms": main_errs[main_size]["plain_ms"],
+            "bound_ms": main_errs[main_size]["bound_ms"], "bound_by": main_errs[main_size]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:1297", "launches": ens_launches,
+            "max_abs_err": max(e["max_abs_duv_px"] for e in [*ens_kern.values(), ens_main]),
+            "ms": ens_main["ms"], "plain_ms": ens_main["plain_ms"],
+            "bound_ms": ens_main["bound_ms"], "bound_by": ens_main["bound_by"], "library_ms": None,
+        },
+    ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

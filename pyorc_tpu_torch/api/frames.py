@@ -3,8 +3,9 @@
 Port of :mod:`pyorc_tpu.api.frames` (reference ``pyorc/api/frames.py``) for
 in-memory frame stacks: each op uploads the stack to the device in batches,
 runs there as PyTorch ops (:mod:`pyorc_tpu_torch.ops.filters`,
-:mod:`pyorc_tpu_torch.ops.ortho`), and returns host arrays; the PIV loop
-streams through the CUDA kernel (:mod:`pyorc_tpu_torch.velocimetry`). Lazy
+:mod:`pyorc_tpu_torch.ops.ortho`), and returns host arrays; the PIV loop,
+time-resolved or ensemble, streams through the CUDA kernels
+(:mod:`pyorc_tpu_torch.velocimetry`). Lazy
 video-backed stacks, the other filters, STIV and the exports are not ported
 yet (ROADMAP.md, queue A).
 """
@@ -160,7 +161,10 @@ class Frames(ORCBase):
 
         Reference frames.py:114-197. ``kwargs`` go to
         :func:`pyorc_tpu_torch.velocimetry.get_piv` (``chunksize``,
-        ``memory_factor``, ``signal_threshold``).
+        ``memory_factor``, ``signal_threshold``, and for
+        ``ensemble_corr=True`` the gates ``corr_min``, ``s2n_min`` and
+        ``count_min``). ``ensemble_corr=True`` returns one time step: the
+        displacement of the mean of the gated correlation planes of all pairs.
         """
         from .. import velocimetry as engine_mod
 

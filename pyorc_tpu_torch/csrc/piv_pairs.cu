@@ -24,79 +24,19 @@
 // Computing each frame's forward transform once for the two pairs that use
 // it (what B1 does on the TPU) and register tiling are later work.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// Entry point `piv_pairs_launch` has a plain C interface (loaded with ctypes);
-// it launches on the given stream, allocates nothing and returns
+// The DFT stages, reductions and normalization live in piv_common.cuh, shared
+// with piv_ensemble.cu; ops/piv_kernels.py::build_library compiles every
+// csrc/*.cu with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler
+// -fPIC and links them into one shared library. Entry point
+// `piv_pairs_launch` has a plain C interface (loaded with ctypes); it
+// launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "piv_common.cuh"
 
 namespace {
 
-constexpr int kMaxWarps = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ int warp_min(int v) {
-    for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
-}
-
-// Sums K values over the block; every thread gets the totals, added in one
-// fixed order. `red` holds K * kMaxWarps floats.
-template <int K>
-__device__ void block_sum(float (&v)[K], float* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-    if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) red[k * kMaxWarps + wid] = v[k];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        float t = 0.f;
-        for (int j = 0; j < nw; ++j) t += red[k * kMaxWarps + j];
-        v[k] = t;
-    }
-    __syncthreads();
-}
-
-__device__ float block_max(float v, float* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    v = warp_max(v);
-    if (lane == 0) red[wid] = v;
-    __syncthreads();
-    float t = red[0];
-    for (int j = 1; j < nw; ++j) t = fmaxf(t, red[j]);
-    __syncthreads();
-    return t;
-}
-
-__device__ int block_min_int(int v, int* red) {
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    v = warp_min(v);
-    if (lane == 0) red[wid] = v;
-    __syncthreads();
-    int t = red[0];
-    for (int j = 1; j < nw; ++j) t = min(t, red[j]);
-    __syncthreads();
-    return t;
-}
-
-__device__ __forceinline__ float load_px(const uint8_t* p) { return static_cast<float>(*p); }
-__device__ __forceinline__ float load_px(const float* p) { return *p; }
+using namespace piv;
 
 // Gaussian 3-point sub-pixel offset, as ops/piv.py::subpixel_peak.
 __device__ __forceinline__ float gauss3(float lo, float c0, float hi) {
@@ -139,10 +79,9 @@ __global__ void piv_pairs_kernel(const T* __restrict__ frames, int H, int W, int
     const int tid = threadIdx.x, nt = blockDim.x;
 
     // load both windows and the tables; sums and non-zero counts
+    load_tables(cos_tab, sin_tab, C, S, N);
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int i = tid; i < N; i += nt) {
-        C[i] = cos_tab[i];
-        S[i] = sin_tab[i];
         const int y = i / n, x = i - y * n;
         const float va = load_px(fa + static_cast<size_t>(y) * W + x);
         const float vb = load_px(fb + static_cast<size_t>(y) * W + x);
@@ -171,77 +110,29 @@ __global__ void piv_pairs_kernel(const T* __restrict__ frames, int H, int W, int
     const float sa = sqrtf(ss[0] / nf), sb = sqrtf(ss[1] / nf);
     const bool valid = sa > 1e-6f && sb > 1e-6f;
 
-    // 1. row DFT of both windows: P[y][k] = sum_x w[y][x] F[x][k]
-    for (int i = tid; i < N; i += nt) {
-        const int y = i / n, k = i - y * n;
-        const float* wa = b0 + y * n;
-        const float* wb = b1 + y * n;
-        float ar = 0.f, ai = 0.f, br = 0.f, bi = 0.f;
-        for (int x = 0; x < n; ++x) {
-            const float cx = C[x * n + k], sx = S[x * n + k];
-            ar = fmaf(wa[x], cx, ar);
-            ai = fmaf(wa[x], sx, ai);
-            br = fmaf(wb[x], cx, br);
-            bi = fmaf(wb[x], sx, bi);
-        }
-        b2[i] = ar;
-        b3[i] = ai;
-        b4[i] = br;
-        b5[i] = bi;
-    }
-    __syncthreads();
+    // 1-2. forward DFT of both windows, then the spectral product conj(A) * B
+    // into b0/b1 (the windows are dead after stage 1)
+    const float* const wins[2] = {b0, b1};
+    float* const rows_re[2] = {b2, b4};
+    float* const rows_im[2] = {b3, b5};
+    dft_rows<2>(wins, rows_re, rows_im, C, S, n);
+    const float* const spec_re[2] = {b2, b4};
+    const float* const spec_im[2] = {b3, b5};
+    dft_cols<2>(spec_re, spec_im, C, S, n, [&](int i, const float (&re)[2], const float (&im)[2]) {
+        b0[i] = re[0] * re[1] + im[0] * im[1];
+        b1[i] = re[0] * im[1] - im[0] * re[1];
+    });
 
-    // 2. column DFT of both, then the spectral product conj(A) * B
-    for (int i = tid; i < N; i += nt) {
-        const int ky = i / n, kx = i - ky * n;
-        float ar = 0.f, ai = 0.f, br = 0.f, bi = 0.f;
-        for (int y = 0; y < n; ++y) {
-            const float cy = C[ky * n + y], sy = S[ky * n + y];
-            const int j = y * n + kx;
-            const float pr = b2[j], pi = b3[j], qr = b4[j], qi = b5[j];
-            ar += cy * pr - sy * pi;
-            ai += cy * pi + sy * pr;
-            br += cy * qr - sy * qi;
-            bi += cy * qi + sy * qr;
-        }
-        b0[i] = ar * br + ai * bi;
-        b1[i] = ar * bi - ai * br;
-    }
-    __syncthreads();
-
-    // 3. inverse column DFT: U[y][kx] = sum_ky conj(F)[y][ky] S[ky][kx]
-    for (int i = tid; i < N; i += nt) {
-        const int y = i / n, kx = i - y * n;
-        float ur = 0.f, ui = 0.f;
-        for (int ky = 0; ky < n; ++ky) {
-            const float cy = C[y * n + ky], sy = S[y * n + ky];
-            const float sr = b0[ky * n + kx], si = b1[ky * n + kx];
-            ur += cy * sr + sy * si;
-            ui += cy * si - sy * sr;
-        }
-        b2[i] = ur;
-        b3[i] = ui;
-    }
-    __syncthreads();
-
-    // 4. inverse row DFT (real part), normalize, clip, fftshift into b4
-    const float denom = nf * fmaxf(nf * sa * sb, 1e-10f);
-    const int h2 = n / 2;
+    // 3-4. inverse DFT (real part), normalize, clip, fftshift into b4
+    idft_cols(b0, b1, b2, b3, C, S, n);
+    const float denom = corr_denom(nf, sa, sb);
     float vmax = 0.f, vsum = 0.f;
-    for (int i = tid; i < N; i += nt) {
-        const int y = i / n, x = i - y * n;
-        const float* ur = b2 + y * n;
-        const float* ui = b3 + y * n;
-        float raw = 0.f;
-        for (int kx = 0; kx < n; ++kx) raw += ur[kx] * C[kx * n + x] + ui[kx] * S[kx * n + x];
-        float val = valid ? fmaxf(raw / denom, 0.f) : 0.f;
-        int ys = y + h2, xs = x + h2;
-        ys -= ys >= n ? n : 0;
-        xs -= xs >= n ? n : 0;
-        b4[ys * n + xs] = val;
+    idft_rows_real(b2, b3, C, S, n, [&](int y, int x, float raw) {
+        const float val = valid ? fmaxf(raw / denom, 0.f) : 0.f;
+        b4[shifted_index(y, x, n)] = val;
         vmax = fmaxf(vmax, val);
         vsum += val;
-    }
+    });
     float tot[1] = {vsum};
     block_sum<1>(tot, red);  // also orders the b4 stores before the reads below
     const float cmax = block_max(vmax, red);
@@ -264,8 +155,9 @@ __global__ void piv_pairs_kernel(const T* __restrict__ frames, int H, int W, int
         const float c0 = b4[iy * n + ix];
         const float dx = gauss3(b4[iy * n + ix - 1], c0, b4[iy * n + ix + 1]);
         const float dy = gauss3(b4[(iy - 1) * n + ix], c0, b4[(iy + 1) * n + ix]);
-        float u = valid ? (static_cast<float>(ix) + dx) - static_cast<float>(h2) : NAN;
-        float v = valid ? -((static_cast<float>(iy) + dy) - static_cast<float>(h2)) : NAN;
+        const float h2 = static_cast<float>(n / 2);
+        float u = valid ? (static_cast<float>(ix) + dx) - h2 : NAN;
+        float v = valid ? -((static_cast<float>(iy) + dy) - h2) : NAN;
         float cm = cmax, sn = s2n;
         if (has_thr && signal < thr) u = v = cm = sn = NAN;
         u_out[o] = u;
@@ -280,15 +172,13 @@ cudaError_t launch(const void* frames, int H, int W, int n, int step_y, int step
                    int n_cols, int n_pairs, int pair_stride, int has_thr, float thr,
                    const float* cos_tab, const float* sin_tab, float* u, float* v, float* cmax,
                    float* s2n, cudaStream_t stream) {
-    const int N = n * n;
-    const size_t smem = (8 * static_cast<size_t>(N) + 4 * kMaxWarps) * sizeof(float);
+    const size_t smem = (8 * static_cast<size_t>(n) * n + 4 * kMaxWarps) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(piv_pairs_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    int threads = N >= 256 ? 256 : ((N + 31) / 32) * 32;
     dim3 grid(n_rows * n_cols, n_pairs);
-    piv_pairs_kernel<T><<<grid, threads, smem, stream>>>(
+    piv_pairs_kernel<T><<<grid, block_threads(n), smem, stream>>>(
         static_cast<const T*>(frames), H, W, n, step_y, step_x, n_cols, pair_stride, has_thr, thr,
         cos_tab, sin_tab, u, v, cmax, s2n);
     return cudaGetLastError();

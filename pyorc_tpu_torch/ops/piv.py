@@ -7,7 +7,9 @@ The per-pair pipeline of the JAX package on tensors:
   -> 3-point Gaussian subpixel peak -> (u, v) displacements
 
 FP32 throughout (bf16 or TF32 correlation misses the 0.01 m/s velocity bar).
-These functions are the plain version of the CUDA kernel in
+``piv_ensemble_scan`` accumulates the gated planes of all pairs instead
+(the ensemble contract). These functions are the plain versions of the CUDA
+kernels in
 :mod:`pyorc_tpu_torch.ops.piv_kernels` and the reference the tests hold the
 port against; the engine reaches them only through that module.
 
@@ -32,6 +34,7 @@ __all__ = [
     "u_v_displacement",
     "subpixel_peak",
     "piv_pairs",
+    "piv_ensemble_scan",
 ]
 
 
@@ -210,3 +213,63 @@ def piv_pairs(imgs: torch.Tensor, dim_size, sas, overlap, n_rows, n_cols, signal
     corr_max, s2n = corr_stats(corr)
     u, v = u_v_displacement(corr, n_rows, n_cols)
     return u, v, corr_max.reshape(-1, n_rows, n_cols), s2n.reshape(-1, n_rows, n_cols)
+
+
+# bytes of float32 window stacks and planes one step of piv_ensemble_scan may hold
+_ENSEMBLE_STEP_BYTES = 1 << 30
+
+
+def piv_ensemble_scan(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    corr_min: float = 0.2,
+    s2n_min: float = 3.0,
+    signal_threshold: Optional[float] = None,
+):
+    """Ensemble PIV over all consecutive pairs (port of ``pyorc_tpu.ops.piv.piv_ensemble_scan``).
+
+    Per pair, a window pair is ``ok`` when both windows have variance, its
+    fraction of non-zero pixels reaches ``signal_threshold`` (if set), and
+    its plane passes ``cmax >= corr_min`` and ``s2n >= s2n_min``; ok planes
+    are added to ``corr_sum`` in pair order and counted. ``s2n`` is
+    ``cmax / max(mean, 1e-10)``; it equals the scan's unguarded ratio
+    wherever ``ok`` holds (an ok plane has mean >= cmax / n_pix). A Python
+    loop takes the place of ``lax.scan``; each step takes as many pairs as
+    keep its window stacks, spectra and planes near ``_ENSEMBLE_STEP_BYTES``,
+    and the planes are added in pair order either way.
+
+    Returns (corr_sum [n_windows, wy, wx], corr_count [n_windows],
+    corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols]), float32, with
+    ``ok * cmax`` and ``ok * s2n`` per pair.
+    """
+    wy, wx = sas
+    row0, col0 = win.get_window_starts(dim_size, sas, overlap)
+    n_pairs = imgs.shape[0] - 1
+    # windows of both frames, their spectra and the planes: ~8 copies of one frame's windows
+    pairs_per_step = max(1, _ENSEMBLE_STEP_BYTES // (8 * len(row0) * len(col0) * wy * wx * 4))
+    corr_sum = torch.zeros((len(row0) * len(col0), wy, wx), dtype=torch.float32, device=imgs.device)
+    corr_count = torch.zeros(corr_sum.shape[0], dtype=torch.float32, device=imgs.device)
+    cmaxs, s2ns = [], []
+    for p0 in range(0, n_pairs, pairs_per_step):
+        p1 = min(p0 + pairs_per_step, n_pairs)
+        w = extract_windows(imgs[p0 : p1 + 1].to(torch.float32), row0, col0, wy, wx)
+        wa, wb = w[:-1], w[1:]
+        corr, valid = _normalized_corr_planes(wa, wb)
+        flat = corr.flatten(-2)
+        cmax = flat.amax(dim=-1)
+        s2n = cmax / torch.clamp(flat.mean(dim=-1), min=1e-10)
+        ok = valid & (cmax >= corr_min) & (s2n >= s2n_min)
+        if signal_threshold is not None:
+            ok &= _pair_signal(wa, wb) >= signal_threshold
+        okf = ok.to(torch.float32)
+        for plane, o in zip(corr * okf[..., None, None], okf):
+            corr_sum += plane
+            corr_count += o
+        cmaxs.append(cmax * okf)
+        s2ns.append(s2n * okf)
+    shape = (n_pairs, n_rows, n_cols)
+    return corr_sum, corr_count, torch.cat(cmaxs).reshape(shape), torch.cat(s2ns).reshape(shape)

@@ -1,25 +1,32 @@
-"""Per-pair PIV on the GPU: the hand-written CUDA kernel and its plain version.
+"""PIV on the GPU: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of :mod:`pyorc_tpu.ops.piv_pallas`. The TPU package runs the
-per-pair contract ``piv_pairs_fused`` through three Pallas kernels chosen by
-geometry (shared-forward tileband, band, plain tileband). Here one CUDA
-kernel, ``pyorc_tpu_torch/csrc/piv_pairs.cu``, computes the same function:
+Counterpart of :mod:`pyorc_tpu.ops.piv_pallas`. The TPU package runs two
+contracts through five Pallas kernels chosen by geometry; here each contract
+is one CUDA kernel under ``pyorc_tpu_torch/csrc/``:
 
-    frames [T, H, W] (uint8 or float32) -> (u, v, corr_max, s2n),
-    each float32 [n_pairs, n_rows, n_cols]
+- ``piv_pairs_fused`` (``csrc/piv_pairs.cu``, Pallas B1-B3): per-pair PIV,
 
-with ``n_pairs = T - 1`` for consecutive frames (``pair_stride=1``) or
-``T // 2`` for interleaved explicit pairs (``pair_stride=2``). Its semantics
-are those of the Pallas kernels (``piv_pallas._finish_corr`` and the NaN
-stores): a window pair with a zero-variance window gives NaN ``u``/``v``,
-``corr_max = 0`` and ``s2n = 0`` (the guarded ``max / max(mean, 1e-10)``).
-With ``signal_threshold`` set, a pair whose smaller fraction of non-zero
-pixels falls below it gives NaN in all four outputs.
+      frames [T, H, W] (uint8 or float32) -> (u, v, corr_max, s2n),
+      each float32 [n_pairs, n_rows, n_cols]
 
-:func:`piv_pairs_fused` launches the kernel for a CUDA tensor, or raises;
-for a CPU tensor it runs :func:`piv_pairs_fused_plain`, the same contract in
-plain PyTorch. The kernel is compiled with ``nvcc`` for ``sm_90a`` at first
-use into ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
+  with ``n_pairs = T - 1`` for consecutive frames (``pair_stride=1``) or
+  ``T // 2`` for interleaved explicit pairs (``pair_stride=2``). Its
+  semantics are those of the Pallas kernels (``piv_pallas._finish_corr`` and
+  the NaN stores): a window pair with a zero-variance window gives NaN
+  ``u``/``v``, ``corr_max = 0`` and ``s2n = 0`` (the guarded
+  ``max / max(mean, 1e-10)``). With ``signal_threshold`` set, a pair whose
+  smaller fraction of non-zero pixels falls below it gives NaN in all four
+  outputs.
+- ``piv_ensemble_fused`` (``csrc/piv_ensemble.cu``, Pallas B4-B5): ensemble
+  PIV, the contract of :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`,
+
+      frames [T, H, W] -> (corr_sum [n_windows, wy, wx], corr_count [n_windows],
+                           corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols])
+
+Each wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
+tensor it runs its plain PyTorch version (``*_plain``). The kernels are
+compiled with ``nvcc`` for ``sm_90a`` at first use into one library under
+``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ from . import windows as win
 __all__ = [
     "piv_pairs_fused",
     "piv_pairs_fused_plain",
+    "piv_ensemble_fused",
+    "piv_ensemble_fused_plain",
     "KERNEL_ROUTE",
+    "LAUNCHES",
     "build_library",
     "MIN_WINDOW",
     "MAX_WINDOW",
@@ -51,19 +61,17 @@ __all__ = [
 # "plain_cpu" (the plain version on a CPU tensor). Tests and the chip smoke
 # run assert on it, so a path that skips the kernel cannot pass unnoticed.
 KERNEL_ROUTE: dict = {}
-# Kernel launches since import (or since a caller reset it to 0); only the
-# kernel launch site adds to it.
-LAUNCHES = 0
+# Launches of each kernel since import (or since a caller reset them to 0);
+# only the kernel launch sites add to them.
+LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0}
 
 MIN_WINDOW = 8
 MAX_WINDOW = 64
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "piv_pairs.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -75,26 +83,43 @@ def _nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile ``csrc/piv_pairs.cu`` (once per source hash) and return the library path.
+    """Compile every ``csrc/*.cu`` into one library (once per hash of all sources) and return its path.
 
-    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
-    is kept beside the library as ``<name>.log``.
+    One ``nvcc -c`` per source runs in parallel, then one ``nvcc -shared``
+    links the objects. The compilers' ``-Xptxas -v`` reports (registers,
+    shared memory, spills) are kept beside the library as ``<name>.log``.
     """
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libpiv_pairs-{digest}.so"
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    lib = _BUILD_DIR / f"libpyorc_kernels-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    reports = [(src, proc, proc.communicate()[0]) for src, proc in zip(sources, procs)]
+    for src, proc, out in reports:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src}:\n{out}")
+    tmp = _BUILD_DIR / f"{tag}.tmp"
+    link = subprocess.run(
+        [_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
     )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SRC}:\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stdout}\n{link.stderr}")
+    lib.with_suffix(".log").write_text("".join(f"== {src.name}\n{out}" for src, _, out in reports))
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     return lib
 
 
@@ -113,6 +138,22 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
         ctypes.c_void_p, ctypes.c_void_p,  # cos, sin tables
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # u, v, cmax, s2n
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.piv_ensemble_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # frames
+        ctypes.c_int,  # frames are uint8 (1) or float32 (0)
+        ctypes.c_int, ctypes.c_int,  # H, W
+        ctypes.c_int,  # window size
+        ctypes.c_int, ctypes.c_int,  # step_y, step_x
+        ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
+        ctypes.c_int,  # n_frames
+        ctypes.c_float, ctypes.c_float,  # corr_min, s2n_min
+        ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
+        ctypes.c_void_p, ctypes.c_void_p,  # cos, sin tables
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # corr_sum, count, cmax, s2n
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int
@@ -136,30 +177,35 @@ def _grid_steps(dim_size, sas, overlap, n_rows, n_cols):
     return sas[0] - overlap[0], sas[1] - overlap[1]
 
 
-def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
-    global LAUNCHES
+def _kernel_frames(imgs, sas, name):
+    """Check what both kernels take (square 8-64 px windows, a [T, H, W]
+    stack); return the frames as a contiguous uint8 or float32 tensor."""
     wy, wx = sas
     if wy != wx or not MIN_WINDOW <= wx <= MAX_WINDOW:
         raise ValueError(
-            f"piv_pairs_fused: the CUDA kernel takes square windows of {MIN_WINDOW}-{MAX_WINDOW} px, "
+            f"{name}: the CUDA kernel takes square windows of {MIN_WINDOW}-{MAX_WINDOW} px, "
             f"got {wy}x{wx} (larger and non-square windows are listed in ROADMAP.md, queue B)"
         )
     if imgs.dim() != 3:
-        raise ValueError(f"piv_pairs_fused: frames must be [T, H, W], got shape {tuple(imgs.shape)}")
+        raise ValueError(f"{name}: frames must be [T, H, W], got shape {tuple(imgs.shape)}")
     if imgs.dtype not in (torch.uint8, torch.float32):
         imgs = imgs.to(torch.float32)
-    imgs = imgs.contiguous()
+    return imgs.contiguous()
+
+
+def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
+    imgs = _kernel_frames(imgs, sas, "piv_pairs_fused")
     t, h, w = imgs.shape
     n_pairs = t - 1 if pair_stride == 1 else t // pair_stride
     if n_pairs < 1 or n_pairs > 65535:
         raise ValueError(f"piv_pairs_fused: {n_pairs} pairs per launch; the kernel takes 1-65535")
     device = imgs.device
-    cos_t, sin_t = _dft_tables(wx, device)
+    cos_t, sin_t = _dft_tables(sas[1], device)
     outs = [torch.empty((n_pairs, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(4)]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _library().piv_pairs_launch(
-            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, wx, steps[0], steps[1],
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[1], steps[0], steps[1],
             n_rows, n_cols, n_pairs, pair_stride,
             int(signal_threshold is not None), float(signal_threshold or 0.0),
             cos_t.data_ptr(), sin_t.data_ptr(),
@@ -167,8 +213,34 @@ def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
         )
     if err != 0:
         raise RuntimeError(f"piv_pairs_fused: CUDA kernel launch failed (cudaError {err})")
-    LAUNCHES += 1
+    LAUNCHES["piv_pairs"] += 1
     return tuple(outs)
+
+
+def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold):
+    imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused")
+    t, h, w = imgs.shape
+    if t < 2:
+        raise ValueError(f"piv_ensemble_fused: {t} frames per launch; the kernel needs at least 2")
+    device = imgs.device
+    n = sas[1]
+    cos_t, sin_t = _dft_tables(n, device)
+    corr_sum = torch.empty((n_rows * n_cols, n, n), dtype=torch.float32, device=device)
+    count = torch.empty((n_rows * n_cols,), dtype=torch.float32, device=device)
+    cmax, s2n = (torch.empty((t - 1, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(2))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _library().piv_ensemble_launch(
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, n, steps[0], steps[1],
+            n_rows, n_cols, t, float(corr_min), float(s2n_min),
+            int(signal_threshold is not None), float(signal_threshold or 0.0),
+            cos_t.data_ptr(), sin_t.data_ptr(),
+            corr_sum.data_ptr(), count.data_ptr(), cmax.data_ptr(), s2n.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"piv_ensemble_fused: CUDA kernel launch failed (cudaError {err})")
+    LAUNCHES["piv_ensemble"] += 1
+    return corr_sum, count, cmax, s2n
 
 
 def piv_pairs_fused(
@@ -241,3 +313,57 @@ def piv_pairs_fused_plain(
         low = (piv_ops._pair_signal(wa, wb) < signal_threshold).reshape(shape)
         u, v, cmax, s2n = (torch.where(low, torch.nan, x) for x in (u, v, cmax, s2n))
     return u, v, cmax, s2n
+
+
+def piv_ensemble_fused(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    corr_min: float = 0.2,
+    s2n_min: float = 3.0,
+    signal_threshold: Optional[float] = None,
+):
+    """Ensemble PIV: frames [T, H, W] -> (corr_sum [n_windows, wy, wx],
+    corr_count [n_windows], corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols]).
+
+    A CUDA tensor launches the CUDA kernel (one launch for the whole stack);
+    a geometry the kernel does not take raises. A CPU tensor runs
+    :func:`piv_ensemble_fused_plain`.
+    """
+    sas = win._as2(sas)
+    overlap = win._as2(overlap)
+    if tuple(imgs.shape[-2:]) != tuple(dim_size):
+        raise ValueError(f"frames of shape {tuple(imgs.shape)} do not match dim_size {tuple(dim_size)}")
+    steps = _grid_steps(dim_size, sas, overlap, n_rows, n_cols)
+    if imgs.device.type == "cuda":
+        out = _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
+        KERNEL_ROUTE["piv_ensemble_fused"] = "cuda"
+        return out
+    if imgs.device.type != "cpu":
+        raise ValueError(f"piv_ensemble_fused: no kernel for device {imgs.device}")
+    KERNEL_ROUTE["piv_ensemble_fused"] = "plain_cpu"
+    return piv_ensemble_fused_plain(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
+
+
+def piv_ensemble_fused_plain(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    corr_min: float = 0.2,
+    s2n_min: float = 3.0,
+    signal_threshold: Optional[float] = None,
+):
+    """The kernel's contract in plain PyTorch (``torch.fft``), on any device:
+    :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`, with TF32 off on the card."""
+    if imgs.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return piv_ops.piv_ensemble_scan(
+        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
+    )

@@ -4,9 +4,15 @@ Port of :mod:`pyorc_tpu.velocimetry.engine` (reference
 ``pyorc/velocimetry/ffpiv.py:24-474``). Frames stream through the device in
 memory-sized chunks with a one-frame overlap; each chunk runs the per-pair
 PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`
-(the CUDA kernel on the GPU), and a device out-of-memory error splits the
-chunk in two. Ensemble correlation, multi-pass PIV and multi-device
-sharding are not ported yet (ROADMAP.md, queue A).
+or, with ``ensemble_corr=True``, the ensemble contract through
+:func:`pyorc_tpu_torch.ops.piv_kernels.piv_ensemble_fused` (the CUDA kernels
+on the GPU), and a device out-of-memory error splits the chunk in two.
+Multi-pass PIV and multi-device sharding are not ported yet (ROADMAP.md,
+queue A).
+
+As in the JAX package, the ensemble ``count_min`` filter compares pair
+counts against ``count_min * n_pairs`` of the whole stack (the parameter's
+documented meaning), not the reference's chunk-dependent count.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from .. import ndx
 from .._device import get_device
+from ..ops import piv as piv_ops
 from ..ops import piv_kernels
 from ..ops import windows as win
 
@@ -46,13 +53,18 @@ def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chun
     return int(chunksize)
 
 
-def _run_chunk_oom_backoff(fn, chunk, min_frames=3):
+def _concat_pairs(left, right):
+    """Per-pair outputs of two consecutive chunks, joined along the pair axis."""
+    return tuple(np.concatenate([a, b], axis=0) for a, b in zip(left, right))
+
+
+def _run_chunk_oom_backoff(fn, chunk, merge=_concat_pairs, min_frames=3):
     """Run fn(chunk) with halving splits on device OOM.
 
     Mirrors the reference's shrinking-chunk retry (reference ffpiv.py:13-21):
     a ``torch.cuda.OutOfMemoryError`` retries the chunk as two halves sharing
-    a one-frame overlap, recursively, and re-concatenates the per-pair
-    outputs.
+    a one-frame overlap, recursively, and joins the halves' outputs with
+    ``merge`` (by default: concatenated per-pair outputs).
     """
     try:
         return fn(chunk)
@@ -64,9 +76,9 @@ def _run_chunk_oom_backoff(fn, chunk, min_frames=3):
             stacklevel=2,
         )
         mid = chunk.shape[0] // 2
-        left = _run_chunk_oom_backoff(fn, chunk[: mid + 1], min_frames)
-        right = _run_chunk_oom_backoff(fn, chunk[mid:], min_frames)
-        return tuple(np.concatenate([a, b], axis=0) for a, b in zip(left, right))
+        left = _run_chunk_oom_backoff(fn, chunk[: mid + 1], merge, min_frames)
+        right = _run_chunk_oom_backoff(fn, chunk[mid:], merge, min_frames)
+        return merge(left, right)
 
 
 def _iter_chunks(data, chunksize):
@@ -97,14 +109,20 @@ def get_piv(
     chunksize: Optional[int] = None,
     memory_factor: float = 4,
     ensemble_corr: bool = False,
+    corr_min: float = 0.2,
+    s2n_min: float = 3.0,
+    count_min: float = 0.2,
     signal_threshold: Optional[float] = None,
     passes: int = 1,
 ) -> ndx.Dataset:
-    """Time-resolved PIV over the frame stack -> Dataset(v_x, v_y, corr, s2n)."""
-    if ensemble_corr:
-        raise NotImplementedError(
-            "ensemble_corr=True is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 10)."
-        )
+    """Time-resolved or ensemble PIV over the frame stack -> Dataset(v_x, v_y, corr, s2n).
+
+    ``ensemble_corr=True`` averages the gated correlation planes of all
+    pairs (``corr_min``, ``s2n_min``) and returns one time step; cells with
+    fewer than ``count_min * n_pairs`` ok pairs are NaN.
+    """
+    if ensemble_corr and passes > 1:
+        raise ValueError("ensemble_corr=True cannot be combined with passes > 1.")
     if passes > 1:
         raise NotImplementedError(
             "passes > 1 (multi-pass PIV) is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 11)."
@@ -115,6 +133,11 @@ def get_piv(
     ov = tuple(win._as2(overlap))
     n_rows, n_cols = len(y), len(x)
     chunksize = _chunk_plan(n_frames, dim_size, window_size, ov, sas, chunksize, memory_factor)
+    if ensemble_corr:
+        return _piv_ensemble(
+            frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
+            chunksize, corr_min, s2n_min, count_min, signal_threshold, frames.attrs,
+        )
     return _piv_timestep(
         frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
         chunksize, signal_threshold, frames.attrs,
@@ -130,10 +153,7 @@ def _piv_timestep(
     n_pairs = data.shape[0] - 1
 
     def run_one(chunk):
-        if torch.is_tensor(chunk):
-            frames = chunk.to(device)
-        else:
-            frames = torch.as_tensor(np.ascontiguousarray(chunk)).to(device)
+        frames = _to_device(chunk, device)
         out = piv_kernels.piv_pairs_fused(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
         return tuple(o.cpu().numpy() for o in out)
 
@@ -155,6 +175,70 @@ def _piv_timestep(
     u = (u * res_x / dt_vals[:, None, None]).astype(np.float32)
     v = (v * res_y / dt_vals[:, None, None]).astype(np.float32)
     return _assemble_ds(s2n, cmax, u, v, time, y, x, attrs)
+
+
+def _to_device(chunk, device):
+    """A chunk of the stack (numpy array or tensor) on ``device``."""
+    if torch.is_tensor(chunk):
+        return chunk.to(device)
+    return torch.as_tensor(np.ascontiguousarray(chunk)).to(device)
+
+
+def _merge_ensemble(left, right):
+    """Ensemble outputs of two consecutive chunks: sums and counts add, per-pair stats join."""
+    return (left[0] + right[0], left[1] + right[1], *_concat_pairs(left[2:], right[2:]))
+
+
+def _piv_ensemble(
+    data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
+    chunksize, corr_min, s2n_min, count_min, signal_threshold, attrs,
+):
+    device = get_device()
+    n_pairs_total = data.shape[0] - 1
+
+    def run_one(chunk):
+        cs, cc, cmax, s2n = piv_kernels.piv_ensemble_fused(
+            _to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
+        )
+        return cs, cc, cmax.cpu().numpy(), s2n.cpu().numpy()
+
+    # corr_sum and corr_count stay on the device across chunks
+    corr_sum, corr_count = 0.0, 0.0
+    cms, s2ns = [], []
+    done = 0
+    for _start, chunk in _iter_chunks(data, chunksize):
+        cs, cc, cmax, s2n = _run_chunk_oom_backoff(run_one, chunk, _merge_ensemble)
+        corr_sum = corr_sum + cs
+        corr_count = corr_count + cc
+        cms.append(cmax)
+        s2ns.append(s2n)
+        done += chunk.shape[0] - 1
+        log.info("PIV (ensemble): %d/%d", done, n_pairs_total)
+    corr_sum = corr_sum.cpu().numpy()
+    corr_count = corr_count.cpu().numpy()
+    cmax_all = np.concatenate(cms, axis=0)
+    s2n_all = np.concatenate(s2ns, axis=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        low_count = corr_count < count_min * n_pairs_total
+        corr_sum[low_count] = np.nan
+        flat_low = low_count.reshape(n_rows, n_cols)
+        cmax_all = np.where(flat_low[None], np.nan, cmax_all)
+        corr_mean = corr_sum / np.maximum(corr_count, 1)[..., None, None]
+        corr_mean[corr_count == 0] = np.nan
+        # zeroed (rejected) planes must not drag the time stats down
+        cmax_masked = np.where(cmax_all == 0.0, np.nan, cmax_all)
+        s2n_masked = np.where(s2n_all == 0.0, np.nan, s2n_all)
+        cmax_mean = np.nanmean(cmax_masked, axis=0).reshape(1, n_rows, n_cols)
+        s2n_mean = np.nanmean(s2n_masked, axis=0).reshape(1, n_rows, n_cols)
+    u, v = piv_ops.u_v_displacement(torch.as_tensor(corr_mean)[None], n_rows, n_cols)
+    dt_av = float(np.asarray(dt.values if hasattr(dt, "values") else dt).mean())
+    u = (u.numpy() * res_x / dt_av).astype(np.float32)
+    v = (v.numpy() * res_y / dt_av).astype(np.float32)
+    # NaN out low-count cells in displacements too
+    u[0][flat_low] = np.nan
+    v[0][flat_low] = np.nan
+    return _assemble_ds(s2n_mean, cmax_mean, u, v, time_all[1:2], y, x, attrs)
 
 
 def _assemble_ds(s2n, corr, u, v, time, y, x, attrs) -> ndx.Dataset:

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain version on the card (skipped without one).
+"""The CUDA kernels against their plain versions on the card (skipped without one).
 
 Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
@@ -61,9 +61,9 @@ def test_kernel_matches_plain(cuda, size, pair_stride, dtype):
     sas, overlap = (size, size), (size // 2, size // 2)
     n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
     args = ((h, w), sas, overlap, n_rows, n_cols)
-    before = piv_kernels.LAUNCHES
+    before = piv_kernels.LAUNCHES["piv_pairs"]
     out_k = piv_kernels.piv_pairs_fused(frames, *args, pair_stride=pair_stride)
-    assert piv_kernels.LAUNCHES == before + 1
+    assert piv_kernels.LAUNCHES["piv_pairs"] == before + 1
     assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "cuda"
     out_p = piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
     torch.cuda.synchronize()
@@ -93,3 +93,59 @@ def test_kernel_raises_on_unsupported_geometry(cuda):
         n_rows, n_cols = win.get_field_shape((200, 200), sas, overlap)
         with pytest.raises(ValueError, match="square windows"):
             piv_kernels.piv_pairs_fused(frames, (200, 200), sas, overlap, n_rows, n_cols)
+
+
+def _compare_ensemble(out_k, out_p, corr_min):
+    """Gates equal (no pair of these frames lies at a threshold), |d corr_sum| <=
+    1e-4 * max(count, 1), counts equal, |d cmax| <= 1e-4, s2n within 1e-3 relative."""
+    (sum_k, n_k, c_k, s_k), (sum_p, n_p, c_p, s_p) = out_k, out_p
+    for a, b in zip(out_k, out_p):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+    assert torch.equal(c_k > 0, c_p > 0) and torch.equal(n_k, n_p)
+    assert ((sum_k - sum_p).abs().flatten(1).amax(1) <= 1e-4 * n_p.clamp(min=1)).all()
+    assert (c_k - c_p).abs().max() <= 1e-4
+    assert ((s_k - s_p).abs() / s_p.clamp(min=1e-6)).max() <= 1e-3
+
+
+@pytest.mark.parametrize("size,step", [(8, 4), (16, 8), (26, 13), (32, 16), (32, 12), (64, 32)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_ensemble_kernel_matches_plain(cuda, size, step, dtype):
+    rng = np.random.default_rng(size + step)
+    h, w = 4 * size + 20, 6 * size + 8
+    frames = torch.as_tensor(_frames(rng, 7, h, w, zero_band=size == 32, dtype=dtype), device=cuda)
+    sas, overlap = (size, size), (size - step, size - step)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    args = ((h, w), sas, overlap, n_rows, n_cols, 0.1, 1.5)
+    before = piv_kernels.LAUNCHES["piv_ensemble"]
+    out_k = piv_kernels.piv_ensemble_fused(frames, *args)
+    assert piv_kernels.LAUNCHES["piv_ensemble"] == before + 1
+    assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "cuda"
+    out_p = piv_kernels.piv_ensemble_fused_plain(frames, *args)
+    torch.cuda.synchronize()
+    assert (out_p[1] > 0).any()
+    _compare_ensemble(out_k, out_p, 0.1)
+
+
+def test_ensemble_kernel_signal_threshold(cuda):
+    rng = np.random.default_rng(2)
+    h, w = 96, 128
+    stack = _frames(rng, 4, h, w)
+    stack[:, :40, :48] = 0
+    stack[1, 40:72, 48:80] = 0
+    frames = torch.as_tensor(stack, device=cuda)
+    sas, overlap = (16, 16), (8, 8)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    args = ((h, w), sas, overlap, n_rows, n_cols, 0.1, 1.5, 0.5)
+    out_k = piv_kernels.piv_ensemble_fused(frames, *args)
+    out_p = piv_kernels.piv_ensemble_fused_plain(frames, *args)
+    assert (out_p[1] == 0).any() and (out_p[1] > 0).any()
+    _compare_ensemble(out_k, out_p, 0.1)
+
+
+def test_ensemble_kernel_raises_on_unsupported_geometry(cuda):
+    frames = torch.zeros((3, 200, 200), device=cuda)
+    for sas in ((96, 96), (32, 16)):
+        overlap = (sas[0] // 2, sas[1] // 2)
+        n_rows, n_cols = win.get_field_shape((200, 200), sas, overlap)
+        with pytest.raises(ValueError, match="square windows"):
+            piv_kernels.piv_ensemble_fused(frames, (200, 200), sas, overlap, n_rows, n_cols)

@@ -30,6 +30,9 @@ def test_slice_runs_without_jax_and_host_libraries():
         results, *_ = chip_smoke.slice_phase(480, 640, 12, "cpu")
         assert set(results) == {{16, 26}}, results
         assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+        camera = {{"f": 1000.0, "gcp_px": 60, "aoi_px": 100}}
+        results, *_ = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera)
+        assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"
         leaked = sorted(m for m in sys.modules if m == "pyorc_tpu" or m.startswith("pyorc_tpu."))
         assert not leaked, leaked
         print("SLICE_OK")
@@ -43,10 +46,9 @@ def test_slice_runs_without_jax_and_host_libraries():
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    """Source check: no module of the port imports jax or pyorc_tpu."""
-    pkg = ROOT / "pyorc_tpu_torch"
+    """Source check: no module of the port, and not chip_smoke.py, imports jax or pyorc_tpu."""
     offenders = []
-    for path in sorted(pkg.rglob("*.py")):
+    for path in [*sorted((ROOT / "pyorc_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.strip().replace(",", " ").split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

@@ -1,0 +1,214 @@
+"""The CUDA kernels' own code on the CPU, held to their plain versions.
+
+``pyorc_tpu_torch/csrc/*.cu`` are compiled with g++ as host C++ against a
+small stand-in for ``cuda_runtime.h`` that runs every CUDA thread of a block
+as a host thread (``__syncthreads`` and the warp shuffles are barriers), and
+the port's launch helpers call the result through ctypes on CPU tensors. This
+checks the kernels' indexing, synchronisation and arithmetic where no card
+and no nvcc exist; what only the card's compiler decides (registers, shared
+memory limits, speed) stays with ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
+"""
+
+import contextlib
+import re
+import shutil
+import subprocess
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pyorc_tpu_torch.ops import piv_kernels
+from pyorc_tpu_torch.ops import windows as win
+
+from test_torch_cuda import _compare, _compare_ensemble, _frames, _gap
+
+CSRC = Path(piv_kernels.__file__).resolve().parent.parent / "csrc"
+
+# what the kernels use of the CUDA runtime, on host threads
+CUDA_RUNTIME_SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <limits>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+using std::max;
+using std::min;
+
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef int cudaError_t;
+const int cudaSuccess = 0;
+typedef struct CUstream_st* cudaStream_t;
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+const size_t emu_max_smem = 232448;  // a Hopper block's dynamic shared memory limit
+inline int emu_error = 0;
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) { return bytes > (int)emu_max_smem ? 1 : 0; }
+inline cudaError_t cudaGetLastError() { int e = emu_error; emu_error = 0; return e; }
+
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline std::vector<float> emu_smem;
+inline std::barrier<>* emu_block_barrier = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
+inline std::vector<float> emu_lanes_f;
+inline std::vector<int> emu_lanes_i;
+
+inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+template <class T>
+inline T emu_shfl_xor(std::vector<T>& lanes, T v, int o) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    lanes[warp * 32 + lane] = v;
+    emu_warp_barriers[warp]->arrive_and_wait();
+    T r = lanes[warp * 32 + (lane ^ o)];
+    emu_warp_barriers[warp]->arrive_and_wait();
+    return r;
+}
+inline float __shfl_xor_sync(unsigned, float v, int o) { return emu_shfl_xor(emu_lanes_f, v, o); }
+inline int __shfl_xor_sync(unsigned, int v, int o) { return emu_shfl_xor(emu_lanes_i, v, o); }
+
+// Runs kernel() for every block of the grid, one host thread per CUDA thread;
+// shared memory starts as NaN, so a read before a write shows in the results.
+template <class F>
+void emu_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F kernel) {
+    if (threads % 32 || threads > 1024 || smem > emu_max_smem) { emu_error = 9; return; }
+    emu_smem.assign(smem / sizeof(float) + 1, std::numeric_limits<float>::quiet_NaN());
+    blockDim = dim3(threads);
+    gridDim = grid;
+    std::barrier<> block_barrier(threads);
+    emu_block_barrier = &block_barrier;
+    emu_warp_barriers.clear();
+    for (int w = 0; w < threads / 32; ++w) emu_warp_barriers.emplace_back(new std::barrier<>(32));
+    emu_lanes_f.assign(threads, 0.f);
+    emu_lanes_i.assign(threads, 0);
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t) {
+        pool.emplace_back([&, t] {
+            threadIdx = dim3(t);
+            for (unsigned by = 0; by < grid.y; ++by)
+                for (unsigned bx = 0; bx < grid.x; ++bx) {
+                    blockIdx = dim3(bx, by);
+                    kernel();
+                    block_barrier.arrive_and_wait();
+                }
+        });
+    }
+    for (auto& t : pool) t.join();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_library(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources as host C++")
+    out = tmp_path_factory.mktemp("kernel_emulation")
+    (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_SHIM)
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    sources = []
+    for src in sorted(CSRC.glob("*.cu")):
+        text = src.read_text().replace("extern __shared__ float smem[];", "float* smem = emu_smem.data();")
+        # kernel<T><<<grid, block, smem, stream>>>(args); -> emu_launch(grid, block, smem, stream, [&] { kernel<T>(args); });
+        text, n = re.subn(
+            r"(\w+<\w+>)<<<([^>]*)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", text, flags=re.S
+        )
+        assert n == 1, f"{src.name}: expected one kernel launch, found {n}"
+        sources.append(out / (src.stem + ".cpp"))
+        sources[-1].write_text(text)
+    lib = out / "libpiv_emulated.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
+         *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return lib
+
+
+@pytest.fixture
+def kernels(emulated_library, monkeypatch):
+    """piv_kernels with its launch helpers bound to the emulated library."""
+    monkeypatch.setattr(piv_kernels, "build_library", lambda: emulated_library)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    piv_kernels._library.cache_clear()
+    torch.set_num_threads(2)
+    yield piv_kernels
+    piv_kernels._library.cache_clear()
+
+
+def _grid(h, w, size, step):
+    sas, overlap = (size, size), (size - step, size - step)
+    return ((h, w), sas, overlap, *win.get_field_shape((h, w), sas, overlap))
+
+
+def _dark(stack):
+    """Dark corners (below a 0.5 signal threshold) and a band dark in one frame."""
+    h, w = stack.shape[1:]
+    stack[:, : h // 3, : w // 3] = 0
+    stack[1, h // 3 : 2 * h // 3, w // 3 : 2 * w // 3] = 0
+    return stack
+
+
+@pytest.mark.parametrize(
+    "size,dtype,threshold,zero_band",
+    [(16, np.uint8, None, False), (26, np.float32, None, True), (16, np.uint8, 0.5, False)],
+    ids=["16-u8", "26-f32-zero", "16-threshold"],
+)
+def test_pairs_kernel_code_matches_plain(kernels, size, dtype, threshold, zero_band):
+    rng = np.random.default_rng(size)
+    h, w = 3 * size + 10, 4 * size + 6
+    stack = _frames(rng, 3, h, w, zero_band=zero_band, dtype=dtype)
+    frames = torch.as_tensor(_dark(stack) if threshold else stack)
+    args = _grid(h, w, size, size // 2)
+    out_k = kernels._launch(frames, args[1], (size // 2, size // 2), *args[3:], threshold, 1)
+    out_p = kernels.piv_pairs_fused_plain(frames, *args, threshold)
+    if threshold:
+        assert torch.isnan(out_p[2]).any()
+    _compare(out_k, out_p, _gap(frames, *args[:3], 1, out_p[0].shape))
+
+
+@pytest.mark.parametrize(
+    "size,step,dtype,threshold,zero_band",
+    [
+        (8, 4, np.float32, None, False),
+        (16, 8, np.uint8, None, False),
+        (26, 13, np.float32, None, True),
+        (32, 12, np.uint8, None, False),
+        (64, 32, np.uint8, None, False),
+        (16, 8, np.uint8, 0.5, False),
+    ],
+    ids=["8-f32", "16-u8", "26-f32-zero", "32-step12", "64-u8", "16-threshold"],
+)
+def test_ensemble_kernel_code_matches_plain(kernels, size, step, dtype, threshold, zero_band):
+    rng = np.random.default_rng(size + step)
+    h, w = 3 * size + 10, 4 * size + 6
+    stack = _frames(rng, 5, h, w, zero_band=zero_band, dtype=dtype)
+    frames = torch.as_tensor(_dark(stack) if threshold else stack)
+    args = _grid(h, w, size, step)
+    out_k = kernels._launch_ensemble(frames, args[1], (step, step), *args[3:], 0.1, 1.5, threshold)
+    out_p = kernels.piv_ensemble_fused_plain(frames, *args, 0.1, 1.5, threshold)
+    assert (out_p[1] > 0).any()
+    if zero_band or threshold:
+        assert (out_p[1] == 0).any()
+    _compare_ensemble(out_k, out_p, 0.1)
