@@ -7,11 +7,14 @@
    the CUDA kernels from ``pyorc_tpu_torch/csrc/`` into one library under
    ``build/``.
 2. Per-pair kernel phase: particle frames of 1088x1920, 9 frames with a
-   known sub-pixel shift, at 16, 26 and 64 px windows. The kernel is held
-   against its plain PyTorch version on the card and both are timed (CUDA
-   events, median of 10 runs after warm-up).
+   known sub-pixel shift, at 16, 26, 64, 104 and 128 px windows (8
+   consecutive pairs), and at 32 and 128 px with ``pair_stride=2`` (4
+   explicit pairs, as multipass PIV gives them). The kernel is held against
+   its plain PyTorch version on the card and both are timed (CUDA events,
+   median of 10 runs after warm-up).
 3. Ensemble kernel phase: the same texture, 65 frames (64 pairs), at 16, 26,
-   32 and 64 px; the ensemble kernel against its plain version, both timed.
+   32 and 64 px at 50 % overlap and 32 px at step 12; the ensemble kernel
+   against its plain version, both timed.
 4. Per-pair slice, at the geul recipe's scale: a 1920x1080, 126-frame
    in-memory stack advected (2.3, -1.4) px/frame through normalize ->
    project -> get_piv (16 and 26 px) -> mask -> get_transect -> get_q ->
@@ -21,21 +24,31 @@
    is run through the kernel and its plain version again, at the slice's
    window grids; the kernel's output must also be the velocity field the
    slice produced. Both are timed at 16 px.
-6. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
+6. Multipass slice: the same projected stack through get_piv(passes=3) at
+   window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
+   -> get_transect -> get_q -> get_river_flow, checked against the analytic
+   velocity and discharge; the per-pair kernel's launches are counted, and
+   must be a whole number of launches per pass.
+7. Multipass main-path check: the 32 px cascade on that stack once with the
+   kernel and once with ``piv_pairs_fused`` swapped for its plain version
+   (in this script only), held to each other and to the slice's velocities;
+   each pass's kernel and plain version are timed beside the bound.
+8. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
    the nadir camera of ``bench_e2e.py``) cut to 10 s: a 3840x2160, 300-frame
    stack through normalize -> project -> get_piv(64 px, ensemble_corr=True)
    -> spatial masks -> get_transect -> get_q -> get_river_flow, checked
    against the analytic velocity (5 %) and discharge (10 %). The ensemble
    kernel's launches in this run are counted.
-7. Ensemble main-path check: the projected 4K stack through the ensemble
+9. Ensemble main-path check: the projected 4K stack through the ensemble
    kernel and its plain version again, held to each other, and the slice's
    velocities held to the kernel's mean-plane displacements; both timed.
-8. Prints one JSON line about the kernels, then the last line
+10. Prints one JSON line about the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-instead runs both slices once under ``torch.profiler`` and prints, per
+instead runs the three slices (per-pair, multipass, ensemble) once under
+``torch.profiler`` and prints, per
 stage, the wall time, the device's busy time (kernels and copies) and its
 idle share; the raw per-stage numbers go to ``build/profile_slice.json``.
 
@@ -62,8 +75,11 @@ FPS = 6.25
 RES = 0.01  # m/px at the water plane
 SHIFT = (2.3, -1.4)  # image-space displacement per frame (x, y) in px
 H_A = 0.0
-KERNEL_SIZES = (16, 26, 64)
+KERNEL_SIZES = (16, 26, 64, 104, 128)
+STRIDE2_SIZES = (32, 128)  # pair_stride=2 runs of the kernel phase
 SLICE_WINDOWS = (15, 25)  # recipe window sizes; rounded to 16 and 26 px, run at 50 % overlap
+# multipass PIV on the per-pair slice's stack: (window_size, passes), at 50 % overlap
+MULTIPASS = ((32, 3), (25, 3))
 # Tolerances against the analytic truth. Two effects bias the medians low
 # (check_chain): on this input about 6 % (16 px) and 4 % (26 px) in v_x.
 VEL_TOL = {16: 0.03, 26: 0.02}  # median velocity [m/s], as tests/test_velocity_parity.py:136
@@ -77,7 +93,9 @@ ENS_FRAMES = 300
 ENS_WINDOW = 64
 ENS_CAMERA = {"f": 6000.0, "gcp_px": 200, "aoi_px": 300}
 ENS_VEL_RTOL = 0.05  # median v_x, v_y against the analytic values, relative
-ENS_KERNEL_SIZES = (16, 26, 32, 64)
+# (window, step) of the ensemble kernel phase: 50 % overlap, and 32 px at step 12
+# (a step that does not divide the window: Pallas B5's geometry)
+ENS_KERNEL_CASES = ((16, 8), (26, 13), (32, 16), (64, 32), (32, 12))
 CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
 
 # H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
@@ -212,19 +230,20 @@ def _stage(times, name):
     times[name] = time.perf_counter() - t0
 
 
-def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False):
+def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False, passes=1):
     """get_piv at 50 % overlap -> mask -> get_transect -> get_q -> get_river_flow.
 
     With ``ensemble=True`` get_piv averages the correlation planes of all
     pairs (one time step), and the masks are the spatial ones that act on a
     single step (minmax, corr, window_mean) instead of minmax, corr, count.
-    Returns the PIV (before masking) and discharge datasets; the stage
-    times go into ``times`` under their names plus ``tag``.
+    ``passes`` goes to get_piv (multipass PIV for passes > 1). Returns the
+    PIV (before masking) and discharge datasets; the stage times go into
+    ``times`` under their names plus ``tag``.
     """
     w_px = window_size + window_size % 2
     with _stage(times, "get_piv" + tag):
         piv = frames_proj.frames.get_piv(
-            window_size=window_size, overlap=(w_px // 2, w_px // 2), ensemble_corr=ensemble
+            window_size=window_size, overlap=(w_px // 2, w_px // 2), ensemble_corr=ensemble, passes=passes
         )
     with _stage(times, "mask" + tag):
         mask = piv.velocimetry.mask
@@ -237,11 +256,12 @@ def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=
     return piv, q
 
 
-def check_chain(piv, q, cc, w_px, rel_tol=None, fps=FPS):
+def check_chain(piv, q, cc, w_px, rel_tol=None, fps=FPS, abs_tol=None):
     """Check one window size's chain against the analytic truth; returns the numbers checked.
 
-    The median velocities are held to the truth within ``VEL_TOL[w_px]``
-    [m/s] or, with ``rel_tol``, within that share of each true component.
+    The median velocities are held to the truth within ``abs_tol`` or
+    ``VEL_TOL[w_px]`` [m/s] or, with ``rel_tol``, within that share of each
+    true component.
 
     The per-pair estimator reads displacements low: two un-padded windows
     share fewer particles the further they are shifted, which tilts the
@@ -261,7 +281,7 @@ def check_chain(piv, q, cc, w_px, rel_tol=None, fps=FPS):
     vx = float(np.nanmedian(piv["v_x"].values))
     vy = float(np.nanmedian(piv["v_y"].values))
     if rel_tol is None:
-        tol_x = tol_y = VEL_TOL[w_px]
+        tol_x = tol_y = VEL_TOL[w_px] if abs_tol is None else abs_tol
     else:
         tol_x, tol_y = rel_tol * abs(vx_true), rel_tol * abs(vy_true)
     if not (abs(vx - vx_true) < tol_x and abs(vy - vy_true) < tol_y):
@@ -307,6 +327,29 @@ def slice_phase(h, w, n_frames, device):
     return results, times, proj, pivs
 
 
+def multipass_phase(proj, h, w):
+    """Drive multipass PIV on the per-pair slice's projected stack ``proj``
+    (camera frames h x w): each MULTIPASS configuration through get_piv ->
+    mask -> get_transect -> get_q -> get_river_flow, held to the analytic
+    truth within VEL_TOL[26] and Q_TOL.
+
+    Returns (per-configuration results with the per-pair kernel's launches,
+    stage times, PIV datasets before masking), keyed by the last window [px].
+    """
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    cc = nadir_camera_config(h, w)
+    times, results, pivs = {}, {}, {}
+    for ws, passes in MULTIPASS:
+        w_px = ws + ws % 2
+        before = piv_kernels.LAUNCHES["piv_pairs"]
+        pivs[w_px], q = run_chain(proj, ws, cc, times, f"[{w_px}px x{passes}]", passes=passes)
+        results[w_px] = check_chain(pivs[w_px], q, cc, w_px, abs_tol=VEL_TOL[26])
+        results[w_px]["launches"] = piv_kernels.LAUNCHES["piv_pairs"] - before
+        results[w_px]["passes"] = passes
+    return results, times, pivs
+
+
 def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
     """Drive the port's ensemble path: the nadir camera ``camera`` (see
     nadir_camera_config) at ENS_FPS, ENS_WINDOW px windows at 50 % overlap.
@@ -349,17 +392,38 @@ def _median_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def _plain_pairs(frames, args, piece=25):
-    """The per-pair plain version over ``frames``, ``piece`` pairs at a time to bound its memory."""
+def _n_pairs(frames, pair_stride):
+    return frames.shape[0] - 1 if pair_stride == 1 else frames.shape[0] // pair_stride
+
+
+def _pieces(frames, pair_stride, piece=25):
+    """``frames`` cut into stacks of at most ``piece`` pairs each (pairs at ``pair_stride``)."""
+    n_pairs = _n_pairs(frames, pair_stride)
+    for p0 in range(0, n_pairs, piece):
+        p1 = min(p0 + piece, n_pairs)
+        yield frames[p0 * pair_stride : (p1 - 1) * pair_stride + 2]
+
+
+def _plain_pairs(frames, args, pair_stride=1):
+    """The per-pair plain version over ``frames``, 25 pairs at a time to bound its memory."""
     import torch
 
     from pyorc_tpu_torch.ops import piv_kernels
 
     pieces = [
-        piv_kernels.piv_pairs_fused_plain(frames[start : start + piece + 1], *args)
-        for start in range(0, frames.shape[0] - 1, piece)
+        piv_kernels.piv_pairs_fused_plain(f, *args, pair_stride=pair_stride) for f in _pieces(frames, pair_stride)
     ]
     return [torch.cat(p) for p in zip(*pieces)]
+
+
+def _pairs_gap(frames, args, pair_stride=1):
+    """Top-2 peak gap of each window pair's plane, [n_pairs, n_rows, n_cols], 25 pairs at a time."""
+    import torch
+
+    from pyorc_tpu_torch.ops import piv as piv_ops
+
+    gaps = [piv_ops.top2_gap(f, *args[:3], pair_stride) for f in _pieces(frames, pair_stride)]
+    return torch.cat(gaps).reshape(-1, args[3], args[4])
 
 
 def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
@@ -384,8 +448,8 @@ def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def pairs_bound(frames, args):
-    n_pairs = frames.shape[0] - 1
+def pairs_bound(frames, args, pair_stride=1):
+    n_pairs = _n_pairs(frames, pair_stride)
     return work_bound(frames, args, n_pairs, 4 * 4 * n_pairs * args[3] * args[4])
 
 
@@ -395,41 +459,47 @@ def ensemble_bound(frames, args):
     return work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=1)
 
 
-def compare_kernel(frames, args, label):
+def compare_kernel(frames, args, label, pair_stride=1):
     """The per-pair kernel against its plain version on the same frames; returns (kernel outputs, errors).
 
     The kernel runs in one launch over all of ``frames``, as the engine calls
     it. ``args`` are ``(dim_size, sas, overlap, n_rows, n_cols)``. Raises
-    unless the NaN masks are equal, |d cmax| <= 1e-4, s2n agrees to 1e-3
-    relative and |d u|, |d v| <= 1e-3 px on windows whose top-2 peak gap
-    exceeds 5e-3.
+    unless the outputs agree as :func:`hold_pairs` requires.
+    """
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    kern = piv_kernels.piv_pairs_fused(frames, *args, pair_stride=pair_stride)
+    if piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] != "cuda":
+        raise AssertionError("piv_pairs_fused did not take the CUDA kernel")
+    plain = _plain_pairs(frames, args, pair_stride)
+    return kern, hold_pairs(kern, plain, _pairs_gap(frames, args, pair_stride), label)
+
+
+def hold_pairs(kern, plain, gap, label):
+    """Per-pair outputs (u, v, cmax, s2n) of the kernel against the plain version's; returns the errors.
+
+    Raises unless the NaN masks are equal, |d cmax| <= 1e-4, s2n agrees to
+    1e-3 relative and |d u|, |d v| <= 1e-3 px on windows whose top-2 peak
+    gap ``gap`` exceeds 5e-3.
     """
     import torch
 
-    from pyorc_tpu_torch.ops import piv as piv_ops
-    from pyorc_tpu_torch.ops import piv_kernels
-
-    kern = piv_kernels.piv_pairs_fused(frames, *args)
-    if piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] != "cuda":
-        raise AssertionError("piv_pairs_fused did not take the CUDA kernel")
     u_k, v_k, c_k, s_k = kern
-    u_p, v_p, c_p, s_p = _plain_pairs(frames, args)
-    gaps = [piv_ops.top2_gap(frames[i : i + 26], *args[:3]) for i in range(0, frames.shape[0] - 1, 25)]
+    u_p, v_p, c_p, s_p = plain
     for name, a, b in (("u", u_k, u_p), ("v", v_k, v_p), ("cmax", c_k, c_p), ("s2n", s_k, s_p)):
         if a.shape != b.shape or not torch.equal(torch.isnan(a), torch.isnan(b)):
             raise AssertionError(f"{label} {name}: shapes or NaN masks differ")
     d_cmax = float(torch.nan_to_num((c_k - c_p).abs()).max())
     rel_s2n = float(torch.nan_to_num((s_k - s_p).abs() / s_p.abs().clamp(min=1e-6)).max())
-    confident = (torch.cat(gaps).reshape(u_p.shape) > 5e-3) & ~torch.isnan(u_p)
+    confident = (gap.reshape(u_p.shape) > 5e-3) & ~torch.isnan(u_p)
     d_uv = float(torch.maximum((u_k - u_p).abs(), (v_k - v_p).abs())[confident].max())
     if d_cmax > 1e-4 or rel_s2n > 1e-3 or d_uv > 1e-3:
         raise AssertionError(f"{label}: kernel vs plain |dcmax|={d_cmax} rel ds2n={rel_s2n} |duv|={d_uv}")
-    errors = {
+    return {
         "n_pairs": u_k.shape[0], "n_windows": u_k.shape[1] * u_k.shape[2],
         "max_abs_dcmax": d_cmax, "max_rel_ds2n": rel_s2n, "max_abs_duv_px": d_uv,
         "confident_share": float(confident.float().mean()),
     }
-    return kern, errors
 
 
 def _mean_plane_uv(corr_sum, count, n_rows, n_cols):
@@ -500,16 +570,18 @@ def compare_ensemble(frames, args, label, corr_min=CORR_MIN, s2n_min=S2N_MIN):
     return kern, errors
 
 
-def _grid(dim_size, w_px):
-    """(dim_size, sas, overlap, n_rows, n_cols) of square w_px windows at 50 % overlap."""
+def _grid(dim_size, w_px, step=None):
+    """(dim_size, sas, overlap, n_rows, n_cols) of square w_px windows at ``step`` (default w_px // 2)."""
     from pyorc_tpu_torch.ops import windows as win
 
-    sas, overlap = (w_px, w_px), (w_px // 2, w_px // 2)
+    step = w_px // 2 if step is None else step
+    sas, overlap = (w_px, w_px), (w_px - step, w_px - step)
     return (tuple(dim_size), sas, overlap, *win.get_field_shape(dim_size, sas, overlap))
 
 
 def kernel_phase(device):
-    """Per-pair kernel vs plain version on the card at 16/26/64 px, both timed; returns per-size numbers."""
+    """Per-pair kernel vs plain version on the card at KERNEL_SIZES (consecutive pairs)
+    and STRIDE2_SIZES (pair_stride=2), both timed; returns numbers keyed by (size, pair_stride)."""
     import torch
 
     from pyorc_tpu_torch.ops import piv_kernels
@@ -517,18 +589,20 @@ def kernel_phase(device):
     h, w, n_frames = 1088, 1920, 9
     frames = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
     out = {}
-    for size in KERNEL_SIZES:
+    for size, stride in [(s, 1) for s in KERNEL_SIZES] + [(s, 2) for s in STRIDE2_SIZES]:
         args = _grid((h, w), size)
-        _, out[size] = compare_kernel(frames, args, f"kernel phase {size} px")
-        out[size]["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args))
-        out[size]["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args))
-        out[size]["bound_ms"], out[size]["bound_by"] = pairs_bound(frames, args)
-        print(f"kernel {size} px: {json.dumps(out[size])}", flush=True)
+        label = f"kernel {size} px" + ("" if stride == 1 else f", pair_stride {stride}")
+        _, row = compare_kernel(frames, args, label, stride)
+        row["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args, pair_stride=stride))
+        row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=stride))
+        row["bound_ms"], row["bound_by"] = pairs_bound(frames, args, stride)
+        out[size, stride] = row
+        print(f"{label}: {json.dumps(row)}", flush=True)
     return out
 
 
 def ensemble_kernel_phase(device):
-    """Ensemble kernel vs plain version at 1088x1920, 65 frames, 16/26/32/64 px, both timed."""
+    """Ensemble kernel vs plain version at 1088x1920, 65 frames, ENS_KERNEL_CASES, both timed."""
     import torch
 
     from pyorc_tpu_torch.ops import piv_kernels
@@ -536,13 +610,15 @@ def ensemble_kernel_phase(device):
     h, w, n_frames = 1088, 1920, 65
     frames = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
     out = {}
-    for size in ENS_KERNEL_SIZES:
-        args = _grid((h, w), size)
-        _, out[size] = compare_ensemble(frames, args, f"ensemble kernel phase {size} px")
-        out[size]["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args))
-        out[size]["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
-        out[size]["bound_ms"], out[size]["bound_by"] = ensemble_bound(frames, args)
-        print(f"ensemble kernel {size} px: {json.dumps(out[size])}", flush=True)
+    for size, step in ENS_KERNEL_CASES:
+        args = _grid((h, w), size, step)
+        label = f"ensemble kernel {size} px" + ("" if 2 * step == size else f", step {step}")
+        _, row = compare_ensemble(frames, args, label)
+        row["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args))
+        row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
+        row["bound_ms"], row["bound_by"] = ensemble_bound(frames, args)
+        out[size, step] = row
+        print(f"{label}: {json.dumps(row)}", flush=True)
     return out
 
 
@@ -572,6 +648,68 @@ def main_path_check(proj, pivs, device, reps=10):
             out[w_px]["plain_ms"] = _median_ms(lambda: _plain_pairs(frames, args), reps)
         out[w_px]["bound_ms"], out[w_px]["bound_by"] = pairs_bound(frames, args)
         print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out[w_px])}", flush=True)
+    return out
+
+
+def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=5):
+    """The multipass cascade on the stack the slice gave it, with the kernel and with its plain version.
+
+    Runs :func:`pyorc_tpu_torch.ops.multipass.piv_multipass` over the whole
+    projected stack twice: once as the engine runs it, once with
+    ``piv_kernels.piv_pairs_fused`` swapped for the plain version (here
+    only, with ``unittest.mock.patch``). Every pass of the first run must
+    take the CUDA kernel. The last pass's outputs of the two runs are held to
+    each other as :func:`hold_pairs` requires (the gap from the plain run's
+    last deformed pairs), and the slice's unmasked v_x / v_y to the first
+    run's displacements times RES / dt. On the card each pass's kernel and
+    plain version are timed on that pass's interleaved deformed pairs
+    (median of ``reps``), beside the bound. Returns the errors and a row per pass.
+    """
+    from unittest import mock
+
+    import torch
+
+    from pyorc_tpu_torch.ops import multipass, piv_kernels
+
+    frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
+    w_px = window_size + window_size % 2
+    dims, sas, ov, n_rows, n_cols = _grid(frames.shape[1:], w_px)
+    kernel = piv_kernels.piv_pairs_fused
+    calls = {"kernel": [], "plain": []}
+
+    def recorded(name, fn):
+        def run(pairs, *args, **kwargs):
+            out = fn(pairs, *args, **kwargs)
+            calls[name].append((pairs, args[:5], piv_kernels.KERNEL_ROUTE.get("piv_pairs_fused")))
+            return out
+        return run
+
+    def plain(pairs, *args, pair_stride=1):
+        return _plain_pairs(pairs, args[:5], pair_stride)
+
+    label = f"multipass main path {w_px} px x{passes}"
+    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("kernel", kernel)):
+        kern = multipass.piv_multipass(frames, dims, sas, ov, n_rows, n_cols, passes=passes)
+    routes = [route for _, _, route in calls["kernel"]]
+    if len(routes) != passes or set(routes) != {"cuda"}:
+        raise AssertionError(f"{label}: the passes took {routes}, not the CUDA kernel each")
+    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("plain", plain)):
+        ref = multipass.piv_multipass(frames, dims, sas, ov, n_rows, n_cols, passes=passes)
+    last_pairs, last_args, _ = calls["plain"][-1]
+    out = hold_pairs(kern, ref, _pairs_gap(last_pairs, last_args, 2), label)
+    dt = np.diff(proj["time"].values)[:, None, None]
+    for name, disp in (("v_x", kern[0]), ("v_y", kern[1])):
+        want = (disp.cpu().numpy() * RES / dt).astype(np.float32)
+        np.testing.assert_allclose(piv[name].values, want, rtol=1e-6, atol=0, err_msg=f"{label} {name}")
+    out["passes"] = []
+    for pairs, args, _ in calls["kernel"]:
+        row = {"window": args[1][0], "n_pairs": pairs.shape[0] // 2, "n_windows": args[3] * args[4]}
+        if device != "cpu":
+            row["ms"] = _median_ms(lambda: kernel(pairs, *args, pair_stride=2), reps)
+            row["plain_ms"] = _median_ms(lambda: _plain_pairs(pairs, args, 2), 3)
+        row["bound_ms"], row["bound_by"] = pairs_bound(pairs, args, 2)
+        out["passes"].append(row)
+    print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -626,10 +764,11 @@ def _union_ms(intervals, rng):
 
 
 def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
-    """Run both slices under ``torch.profiler``; returns per-stage times [ms] and idle share.
+    """Run the slices under ``torch.profiler``; returns per-stage times [ms] and idle share.
 
     ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
-    per-pair and the ensemble slice. A stage's device time is the union of
+    per-pair slice (whose projected stack the multipass slice reuses) and
+    the ensemble slice. A stage's device time is the union of
     the device events (kernels and copies) that fall inside its host time
     range; every stage ends with a copy to the host, so its device work
     finishes inside that range. ``copy_ms`` is the part spent in
@@ -642,8 +781,11 @@ def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        _, times, _, _ = slice_phase(*slice_shape, device)
+        _, times, proj, _ = slice_phase(*slice_shape, device)
+        _, mp_times, _ = multipass_phase(proj, *slice_shape[:2])
+        del proj
         _, ens_times, _, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
+    times.update(mp_times)
     times.update(ens_times)
     events = prof.events()
     ranges = {e.name: e.time_range for e in events if e.name in times and e.device_type.name == "CPU"}
@@ -721,7 +863,22 @@ def main(argv) -> int:
     print(f"slice 1920x1080x126: wall {wall:.3f} s; stages " + json.dumps({k: round(v, 4) for k, v in times.items()}))
     print("slice results " + json.dumps(results))
     main_errs = main_path_check(proj, pivs, device)
-    del proj, pivs
+    del pivs
+
+    t0 = time.perf_counter()
+    (mp_results, mp_times, mp_pivs), mp_launches = _drive(
+        piv_kernels, "piv_pairs", lambda: multipass_phase(proj, 1080, 1920)
+    )
+    wall = time.perf_counter() - t0
+    for w_px, res in mp_results.items():
+        if res["launches"] <= 0 or res["launches"] % res["passes"]:
+            raise AssertionError(f"multipass {w_px} px: {res['launches']} kernel launches for {res['passes']} passes")
+    print(f"multipass slice on the projected stack: wall {wall:.3f} s; {mp_launches} launches; stages "
+          + json.dumps({k: round(v, 4) for k, v in mp_times.items()}))
+    print("multipass slice results " + json.dumps(mp_results))
+    print("single-pass slice results beside them " + json.dumps(results))
+    mp_main = multipass_main_path_check(proj, mp_pivs[32], device)
+    del proj, mp_pivs
 
     h, w = ENS_SHAPE
     t0 = time.perf_counter()
@@ -735,14 +892,17 @@ def main(argv) -> int:
     ens_main = ensemble_main_path_check(ens_proj, ens_piv, device)
 
     main_size = 16
+    coarse = mp_main["passes"][0]  # the 128 px pass
     record = {"kernels": [
         {
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
-            "replaces": "pyorc_tpu/ops/piv_pallas.py:957", "launches": pairs_launches,
-            "max_abs_err": max(e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values()]),
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:957", "launches": pairs_launches + mp_launches,
+            "max_abs_err": max(e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), mp_main]),
             "ms": main_errs[main_size]["ms"], "plain_ms": main_errs[main_size]["plain_ms"],
             "bound_ms": main_errs[main_size]["bound_ms"], "bound_by": main_errs[main_size]["bound_by"],
             "library_ms": None,
+            "multipass_launches": mp_launches, "ms_128px": coarse["ms"], "plain_ms_128px": coarse["plain_ms"],
+            "bound_ms_128px": coarse["bound_ms"], "bound_by_128px": coarse["bound_by"],
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",

@@ -161,10 +161,14 @@ class Frames(ORCBase):
 
         Reference frames.py:114-197. ``kwargs`` go to
         :func:`pyorc_tpu_torch.velocimetry.get_piv` (``chunksize``,
-        ``memory_factor``, ``signal_threshold``, and for
+        ``memory_factor``, ``signal_threshold``, ``passes``, and for
         ``ensemble_corr=True`` the gates ``corr_min``, ``s2n_min`` and
         ``count_min``). ``ensemble_corr=True`` returns one time step: the
         displacement of the mean of the gated correlation planes of all pairs.
+        ``passes=N`` (N > 1) runs multi-pass PIV with symmetric window
+        deformation: N passes from ``2**(N-1)`` times the window down to the
+        window, each deformed by the previous pass's field (an accuracy mode
+        beyond the reference's single pass; not with ``ensemble_corr``).
         """
         from .. import velocimetry as engine_mod
 

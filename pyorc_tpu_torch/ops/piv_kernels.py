@@ -10,7 +10,9 @@ is one CUDA kernel under ``pyorc_tpu_torch/csrc/``:
       each float32 [n_pairs, n_rows, n_cols]
 
   with ``n_pairs = T - 1`` for consecutive frames (``pair_stride=1``) or
-  ``T // 2`` for interleaved explicit pairs (``pair_stride=2``). Its
+  ``T // 2`` for interleaved explicit pairs (``pair_stride=2``, what
+  multipass PIV gives it). It takes square windows of 8-128 px on any
+  uniform step (the square geometry of ``piv_pallas._fused_geometry_ok``). Its
   semantics are those of the Pallas kernels (``piv_pallas._finish_corr`` and
   the NaN stores): a window pair with a zero-variance window gives NaN
   ``u``/``v``, ``corr_max = 0`` and ``s2n = 0`` (the guarded
@@ -23,8 +25,12 @@ is one CUDA kernel under ``pyorc_tpu_torch/csrc/``:
       frames [T, H, W] -> (corr_sum [n_windows, wy, wx], corr_count [n_windows],
                            corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols])
 
+  for square windows of 8-64 px on any uniform step.
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
-tensor it runs its plain PyTorch version (``*_plain``). The kernels are
+tensor it runs its plain PyTorch version (``*_plain``); a geometry its
+kernel does not take (non-square, or wider than ``PAIRS_MAX_WINDOW`` /
+``ENSEMBLE_MAX_WINDOW``) raises on CUDA. The kernels are
 compiled with ``nvcc`` for ``sm_90a`` at first use into one library under
 ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
 """
@@ -54,7 +60,8 @@ __all__ = [
     "LAUNCHES",
     "build_library",
     "MIN_WINDOW",
-    "MAX_WINDOW",
+    "PAIRS_MAX_WINDOW",
+    "ENSEMBLE_MAX_WINDOW",
 ]
 
 # Route the last call of each entry point took: "cuda" (the kernel) or
@@ -66,7 +73,8 @@ KERNEL_ROUTE: dict = {}
 LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0}
 
 MIN_WINDOW = 8
-MAX_WINDOW = 64
+PAIRS_MAX_WINDOW = 128
+ENSEMBLE_MAX_WINDOW = 64
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
@@ -177,13 +185,13 @@ def _grid_steps(dim_size, sas, overlap, n_rows, n_cols):
     return sas[0] - overlap[0], sas[1] - overlap[1]
 
 
-def _kernel_frames(imgs, sas, name):
-    """Check what both kernels take (square 8-64 px windows, a [T, H, W]
-    stack); return the frames as a contiguous uint8 or float32 tensor."""
+def _kernel_frames(imgs, sas, name, max_window):
+    """Check what a kernel takes (square windows of MIN_WINDOW to ``max_window``
+    px, a [T, H, W] stack); return the frames as a contiguous uint8 or float32 tensor."""
     wy, wx = sas
-    if wy != wx or not MIN_WINDOW <= wx <= MAX_WINDOW:
+    if wy != wx or not MIN_WINDOW <= wx <= max_window:
         raise ValueError(
-            f"{name}: the CUDA kernel takes square windows of {MIN_WINDOW}-{MAX_WINDOW} px, "
+            f"{name}: the CUDA kernel takes square windows of {MIN_WINDOW}-{max_window} px, "
             f"got {wy}x{wx} (larger and non-square windows are listed in ROADMAP.md, queue B)"
         )
     if imgs.dim() != 3:
@@ -194,7 +202,7 @@ def _kernel_frames(imgs, sas, name):
 
 
 def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
-    imgs = _kernel_frames(imgs, sas, "piv_pairs_fused")
+    imgs = _kernel_frames(imgs, sas, "piv_pairs_fused", PAIRS_MAX_WINDOW)
     t, h, w = imgs.shape
     n_pairs = t - 1 if pair_stride == 1 else t // pair_stride
     if n_pairs < 1 or n_pairs > 65535:
@@ -218,7 +226,7 @@ def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
 
 
 def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold):
-    imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused")
+    imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused", ENSEMBLE_MAX_WINDOW)
     t, h, w = imgs.shape
     if t < 2:
         raise ValueError(f"piv_ensemble_fused: {t} frames per launch; the kernel needs at least 2")

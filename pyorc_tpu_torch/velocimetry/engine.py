@@ -3,12 +3,13 @@
 Port of :mod:`pyorc_tpu.velocimetry.engine` (reference
 ``pyorc/velocimetry/ffpiv.py:24-474``). Frames stream through the device in
 memory-sized chunks with a one-frame overlap; each chunk runs the per-pair
-PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`
-or, with ``ensemble_corr=True``, the ensemble contract through
+PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`,
+with ``passes > 1`` multi-pass PIV with window deformation through
+:func:`pyorc_tpu_torch.ops.multipass.piv_multipass` (the same kernel on each
+pass) or, with ``ensemble_corr=True``, the ensemble contract through
 :func:`pyorc_tpu_torch.ops.piv_kernels.piv_ensemble_fused` (the CUDA kernels
 on the GPU), and a device out-of-memory error splits the chunk in two.
-Multi-pass PIV and multi-device sharding are not ported yet (ROADMAP.md,
-queue A).
+Multi-device sharding is not ported yet (ROADMAP.md, queue A).
 
 As in the JAX package, the ensemble ``count_min`` filter compares pair
 counts against ``count_min * n_pairs`` of the whole stack (the parameter's
@@ -26,6 +27,7 @@ import torch
 
 from .. import ndx
 from .._device import get_device
+from ..ops import multipass
 from ..ops import piv as piv_ops
 from ..ops import piv_kernels
 from ..ops import windows as win
@@ -119,14 +121,13 @@ def get_piv(
 
     ``ensemble_corr=True`` averages the gated correlation planes of all
     pairs (``corr_min``, ``s2n_min``) and returns one time step; cells with
-    fewer than ``count_min * n_pairs`` ok pairs are NaN.
+    fewer than ``count_min * n_pairs`` ok pairs are NaN. ``passes > 1`` runs
+    multi-pass PIV with symmetric window deformation, each earlier pass at
+    twice the window of the next (:mod:`pyorc_tpu_torch.ops.multipass`); it
+    cannot be combined with ``ensemble_corr``.
     """
     if ensemble_corr and passes > 1:
         raise ValueError("ensemble_corr=True cannot be combined with passes > 1.")
-    if passes > 1:
-        raise NotImplementedError(
-            "passes > 1 (multi-pass PIV) is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 11)."
-        )
     dim_size = tuple(frames.shape[-2:])
     n_frames = frames.shape[0]
     sas = tuple(win._as2(search_area_size))
@@ -140,13 +141,13 @@ def get_piv(
         )
     return _piv_timestep(
         frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-        chunksize, signal_threshold, frames.attrs,
+        chunksize, signal_threshold, frames.attrs, passes,
     )
 
 
 def _piv_timestep(
     data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-    chunksize, signal_threshold, attrs,
+    chunksize, signal_threshold, attrs, passes=1,
 ):
     device = get_device()
     dt_vals = np.asarray(dt.values if hasattr(dt, "values") else dt, dtype=np.float64)
@@ -154,7 +155,12 @@ def _piv_timestep(
 
     def run_one(chunk):
         frames = _to_device(chunk, device)
-        out = piv_kernels.piv_pairs_fused(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
+        if passes > 1:
+            out = multipass.piv_multipass(
+                frames, dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold
+            )
+        else:
+            out = piv_kernels.piv_pairs_fused(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
         return tuple(o.cpu().numpy() for o in out)
 
     us, vs, cms, s2ns = [], [], [], []

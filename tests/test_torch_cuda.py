@@ -51,7 +51,7 @@ def _gap(frames, dims, sas, overlap, pair_stride, shape):
     return piv_ops.top2_gap(frames, dims, sas, overlap, pair_stride).reshape(shape)
 
 
-@pytest.mark.parametrize("size", [8, 16, 26, 32, 64])
+@pytest.mark.parametrize("size", [8, 16, 26, 32, 64, 75, 104, 128])
 @pytest.mark.parametrize("pair_stride", [1, 2])
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_kernel_matches_plain(cuda, size, pair_stride, dtype):
@@ -87,12 +87,14 @@ def test_kernel_signal_threshold(cuda):
 
 
 def test_kernel_raises_on_unsupported_geometry(cuda):
-    frames = torch.zeros((3, 200, 200), device=cuda)
-    for sas in ((96, 96), (32, 16)):
+    frames = torch.zeros((3, 300, 300), device=cuda)
+    for sas in ((130, 130), (32, 16), (128, 96)):
         overlap = (sas[0] // 2, sas[1] // 2)
-        n_rows, n_cols = win.get_field_shape((200, 200), sas, overlap)
-        with pytest.raises(ValueError, match="square windows"):
-            piv_kernels.piv_pairs_fused(frames, (200, 200), sas, overlap, n_rows, n_cols)
+        n_rows, n_cols = win.get_field_shape((300, 300), sas, overlap)
+        before = piv_kernels.LAUNCHES["piv_pairs"]
+        with pytest.raises(ValueError, match="square windows of 8-128 px.*ROADMAP.md, queue B"):
+            piv_kernels.piv_pairs_fused(frames, (300, 300), sas, overlap, n_rows, n_cols)
+        assert piv_kernels.LAUNCHES["piv_pairs"] == before
 
 
 def _compare_ensemble(out_k, out_p, corr_min):

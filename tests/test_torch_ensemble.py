@@ -208,11 +208,14 @@ def test_ensemble_chunked_equals_one_chunk(projected):
 
 
 def test_ensemble_with_passes_raises(projected):
+    """Ensemble PIV with passes > 1 raises; per-pair multipass (128 -> 64 px) runs."""
     _, _, proj_t, _ = projected
     with pytest.raises(ValueError, match="passes"):
         proj_t.frames.get_piv(window_size=64, overlap=(32, 32), ensemble_corr=True, passes=2)
-    with pytest.raises(NotImplementedError, match="multi-pass"):
-        proj_t.frames.get_piv(window_size=64, overlap=(32, 32), passes=2)
+    piv = proj_t.frames.get_piv(window_size=64, overlap=(32, 32), passes=2)
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+    v_x = piv["v_x"].values
+    assert v_x.shape[0] == N_FRAMES - 1 and np.isfinite(v_x).mean() > 0.9
 
 
 def test_ensemble_main_path_check_on_cpu(monkeypatch):

@@ -27,9 +27,11 @@ def test_slice_runs_without_jax_and_host_libraries():
         import chip_smoke
         from pyorc_tpu_torch.ops import piv_kernels
 
-        results, *_ = chip_smoke.slice_phase(480, 640, 12, "cpu")
+        results, _, proj, _ = chip_smoke.slice_phase(480, 640, 12, "cpu")
         assert set(results) == {{16, 26}}, results
         assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+        results, *_ = chip_smoke.multipass_phase(proj[:6], 480, 640)
+        assert set(results) == {{32, 26}}, results
         camera = {{"f": 1000.0, "gcp_px": 60, "aoi_px": 100}}
         results, *_ = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera)
         assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"

@@ -130,7 +130,7 @@ def emulated_library(tmp_path_factory):
         text = src.read_text().replace("extern __shared__ float smem[];", "float* smem = emu_smem.data();")
         # kernel<T><<<grid, block, smem, stream>>>(args); -> emu_launch(grid, block, smem, stream, [&] { kernel<T>(args); });
         text, n = re.subn(
-            r"(\w+<\w+>)<<<([^>]*)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", text, flags=re.S
+            r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", text, flags=re.S
         )
         assert n == 1, f"{src.name}: expected one kernel launch, found {n}"
         sources.append(out / (src.stem + ".cpp"))
@@ -186,6 +186,33 @@ def test_pairs_kernel_code_matches_plain(kernels, size, dtype, threshold, zero_b
     if threshold:
         assert torch.isnan(out_p[2]).any()
     _compare(out_k, out_p, _gap(frames, *args[:3], 1, out_p[0].shape))
+
+
+@pytest.mark.parametrize(
+    "size,pair_stride,dtype,zero_band",
+    [
+        (104, 1, np.uint8, False),
+        (104, 2, np.float32, True),
+        (128, 1, np.float32, False),
+        (128, 2, np.uint8, False),
+        (75, 1, np.float32, False),
+    ],
+    ids=["104-u8", "104-stride2-zero", "128-f32", "128-stride2", "75-odd"],
+)
+def test_pairs_kernel_code_large_windows(kernels, size, pair_stride, dtype, zero_band):
+    """The 65-128 px layout (packed plane, in-place strips) on six windows of two pairs."""
+    rng = np.random.default_rng(size + pair_stride)
+    h, w = size + size // 2 + 3, 2 * size + 1
+    stack = _frames(rng, 2 + pair_stride, h, w, dtype=dtype)
+    if zero_band:
+        stack[:, size // 2 :, :] = 0  # the second row of windows has zero variance
+    frames = torch.as_tensor(stack)
+    args = _grid(h, w, size, size // 2)
+    assert args[3] * args[4] == 6
+    out_k = kernels._launch(frames, args[1], (size // 2, size // 2), *args[3:], None, pair_stride)
+    out_p = kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
+    assert out_p[0].shape[0] == 2 and torch.isnan(out_p[0]).any() == zero_band
+    _compare(out_k, out_p, _gap(frames, *args[:3], pair_stride, out_p[0].shape))
 
 
 @pytest.mark.parametrize(

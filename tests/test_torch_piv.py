@@ -181,8 +181,8 @@ def test_subpixel_ties_break_on_first_index():
 def test_kernel_wrapper_rejects_unsupported_geometry():
     """Geometries the CUDA kernel does not take raise before any launch."""
     frames = torch.zeros((3, 64, 64))
-    for sas in ((16, 32), (96, 96), (6, 6)):
-        with pytest.raises(ValueError, match="square windows"):
+    for sas in ((16, 32), (130, 130), (6, 6)):
+        with pytest.raises(ValueError, match="square windows of 8-128 px"):
             piv_kernels._launch(frames, sas, (sas[0] // 2, sas[1] // 2), 3, 3, None, 1)
     with pytest.raises(ValueError, match="does not match"):
         piv_kernels.piv_pairs_fused(frames, (64, 64), (16, 16), (8, 8), 5, 7)

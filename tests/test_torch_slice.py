@@ -68,9 +68,12 @@ def test_profile_slice_covers_every_stage():
     """The profiled slices report each stage once; on the CPU no device work shows."""
     camera = {"f": 1000.0, "gcp_px": 60, "aoi_px": 100}
     stages = chip_smoke.profile_slice("cpu", (H_IMG, W_IMG, 8), (H_IMG, W_IMG, 8), ens_camera=camera)
+    chain = ("get_piv", "mask", "transect_q_flow")
     want = {"normalize", "project"} | {
-        f"{name}[{ws + ws % 2}px]" for ws in chip_smoke.SLICE_WINDOWS for name in ("get_piv", "mask", "transect_q_flow")
-    } | {f"{name}[ens]" for name in ("normalize", "project", "get_piv", "mask", "transect_q_flow")}
+        f"{name}[{ws + ws % 2}px]" for ws in chip_smoke.SLICE_WINDOWS for name in chain
+    } | {f"{name}[{ws + ws % 2}px x{passes}]" for ws, passes in chip_smoke.MULTIPASS for name in chain} | {
+        f"{name}[ens]" for name in ("normalize", "project", "get_piv", "mask", "transect_q_flow")
+    }
     assert set(stages) == want
     for row in stages.values():
         assert row["wall_ms"] > 0 and row["device_ms"] == row["copy_ms"] == 0.0 and row["idle"] == 1.0
