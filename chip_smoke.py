@@ -7,14 +7,15 @@
    the CUDA kernels from ``pyorc_tpu_torch/csrc/`` into one library under
    ``build/``.
 2. Per-pair kernel phase: particle frames of 1088x1920, 9 frames with a
-   known sub-pixel shift, at 16, 26, 64, 104 and 128 px windows (8
-   consecutive pairs), and at 32 and 128 px with ``pair_stride=2`` (4
-   explicit pairs, as multipass PIV gives them). The kernel is held against
-   its plain PyTorch version on the card and both are timed (CUDA events,
-   median of 10 runs after warm-up).
+   known sub-pixel shift, at 16, 26, 64, 104 and 128 px windows and the
+   non-square 64x128, 128x64 and 32x64 px (8 consecutive pairs, 50 %
+   overlap), and at 32 and 128 px with ``pair_stride=2`` (4 explicit pairs,
+   as multipass PIV gives them). The kernel is held against its plain
+   PyTorch version on the card and both are timed (CUDA events, median of 10
+   runs after warm-up).
 3. Ensemble kernel phase: the same texture, 65 frames (64 pairs), at 16, 26,
-   32 and 64 px at 50 % overlap and 32 px at step 12; the ensemble kernel
-   against its plain version, both timed.
+   32, 64, 104 and 128 px at 50 % overlap, 32 px at step 12 and 64x128 px at
+   step (32, 64); the ensemble kernel against its plain version, both timed.
 4. Per-pair slice, at the geul recipe's scale: a 1920x1080, 126-frame
    in-memory stack advected (2.3, -1.4) px/frame through normalize ->
    project -> get_piv (16 and 26 px) -> mask -> get_transect -> get_q ->
@@ -29,25 +30,37 @@
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
    velocity and discharge; the per-pair kernel's launches are counted, and
    must be a whole number of launches per pass.
-7. Multipass main-path check: the 32 px cascade on that stack once with the
+7. Multipass main-path check: each cascade on that stack once with the
    kernel and once with ``piv_pairs_fused`` swapped for its plain version
    (in this script only), held to each other and to the slice's velocities;
    each pass's kernel and plain version are timed beside the bound.
-8. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
+8. Non-square slice: the same projected stack through get_piv with 64x128 px
+   windows at overlap (32, 64) -> mask -> get_transect -> get_q ->
+   get_river_flow, held to the analytic velocity (0.02 m/s) and discharge;
+   then the main-path check of step 5 on its grid.
+9. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
    the nadir camera of ``bench_e2e.py``) cut to 10 s: a 3840x2160, 300-frame
    stack through normalize -> project -> get_piv(64 px, ensemble_corr=True)
    -> spatial masks -> get_transect -> get_q -> get_river_flow, checked
    against the analytic velocity (5 %) and discharge (10 %). The ensemble
    kernel's launches in this run are counted.
-9. Ensemble main-path check: the projected 4K stack through the ensemble
+10. Ensemble main-path check: the projected 4K stack through the ensemble
    kernel and its plain version again, held to each other, and the slice's
    velocities held to the kernel's mean-plane displacements; both timed.
-10. Prints one JSON line about the kernels, then the last line
+11. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
+   ensemble_corr=True) -> masks -> get_transect -> get_q -> get_river_flow
+   (the kernel's packed layout, Pallas B5's geometry), held to the truth as
+   step 9, then the main-path check of step 10 at 128 px.
+12. Prints one JSON line about the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Each slice runs with every launch count at 0 and must launch its kernel;
+every call of the engine's entry point in it must take the CUDA kernel.
 
     python3 chip_smoke.py --profile
 
-instead runs the three slices (per-pair, multipass, ensemble) once under
+instead runs the five slices (per-pair, multipass, non-square, ensemble,
+wide ensemble) once under
 ``torch.profiler`` and prints, per
 stage, the wall time, the device's busy time (kernels and copies) and its
 idle share; the raw per-stage numbers go to ``build/profile_slice.json``.
@@ -75,11 +88,14 @@ FPS = 6.25
 RES = 0.01  # m/px at the water plane
 SHIFT = (2.3, -1.4)  # image-space displacement per frame (x, y) in px
 H_A = 0.0
-KERNEL_SIZES = (16, 26, 64, 104, 128)
+KERNEL_SIZES = (16, 26, 64, 104, 128, (64, 128), (128, 64), (32, 64))
 STRIDE2_SIZES = (32, 128)  # pair_stride=2 runs of the kernel phase
 SLICE_WINDOWS = (15, 25)  # recipe window sizes; rounded to 16 and 26 px, run at 50 % overlap
 # multipass PIV on the per-pair slice's stack: (window_size, passes), at 50 % overlap
 MULTIPASS = ((32, 3), (25, 3))
+# the non-square per-pair path on that stack: window (y, x) and overlap
+NS_WINDOW, NS_OVERLAP = (64, 128), (32, 64)
+NS_VEL_TOL = 0.02  # median velocity [m/s] against the truth
 # Tolerances against the analytic truth. Two effects bias the medians low
 # (check_chain): on this input about 6 % (16 px) and 4 % (26 px) in v_x.
 VEL_TOL = {16: 0.03, 26: 0.02}  # median velocity [m/s], as tests/test_velocity_parity.py:136
@@ -91,11 +107,13 @@ ENS_SHAPE = (2160, 3840)
 ENS_FPS = 30.0
 ENS_FRAMES = 300
 ENS_WINDOW = 64
+ENS_WIDE_WINDOW = 128  # the second ensemble path on the 4K stack: the packed layout
 ENS_CAMERA = {"f": 6000.0, "gcp_px": 200, "aoi_px": 300}
 ENS_VEL_RTOL = 0.05  # median v_x, v_y against the analytic values, relative
-# (window, step) of the ensemble kernel phase: 50 % overlap, and 32 px at step 12
-# (a step that does not divide the window: Pallas B5's geometry)
-ENS_KERNEL_CASES = ((16, 8), (26, 13), (32, 16), (64, 32), (32, 12))
+# (window, step) of the ensemble kernel phase: 50 % overlap, 32 px at step 12
+# (a step that does not divide the window) and the packed layout's 104 / 128 px
+# and 64x128: Pallas B5's geometry
+ENS_KERNEL_CASES = ((16, 8), (26, 13), (32, 16), (64, 32), (32, 12), (104, 52), (128, 64), ((64, 128), (32, 64)))
 CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
 
 # H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
@@ -230,8 +248,8 @@ def _stage(times, name):
     times[name] = time.perf_counter() - t0
 
 
-def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False, passes=1):
-    """get_piv at 50 % overlap -> mask -> get_transect -> get_q -> get_river_flow.
+def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False, passes=1, overlap=None):
+    """get_piv at ``overlap`` (default 50 %) -> mask -> get_transect -> get_q -> get_river_flow.
 
     With ``ensemble=True`` get_piv averages the correlation planes of all
     pairs (one time step), and the masks are the spatial ones that act on a
@@ -240,10 +258,12 @@ def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=
     PIV (before masking) and discharge datasets; the stage times go into
     ``times`` under their names plus ``tag``.
     """
-    w_px = window_size + window_size % 2
+    if overlap is None:
+        w_px = window_size + window_size % 2
+        overlap = (w_px // 2, w_px // 2)
     with _stage(times, "get_piv" + tag):
         piv = frames_proj.frames.get_piv(
-            window_size=window_size, overlap=(w_px // 2, w_px // 2), ensemble_corr=ensemble, passes=passes
+            window_size=window_size, overlap=overlap, ensemble_corr=ensemble, passes=passes
         )
     with _stage(times, "mask" + tag):
         mask = piv.velocimetry.mask
@@ -348,6 +368,33 @@ def multipass_phase(proj, h, w):
         results[w_px]["launches"] = piv_kernels.LAUNCHES["piv_pairs"] - before
         results[w_px]["passes"] = passes
     return results, times, pivs
+
+
+def non_square_phase(proj, h, w):
+    """Drive non-square per-pair PIV on the per-pair slice's projected stack
+    ``proj`` (camera frames h x w): NS_WINDOW windows at NS_OVERLAP through
+    get_piv -> mask -> get_transect -> get_q -> get_river_flow, held to the
+    analytic truth within NS_VEL_TOL and Q_TOL. Returns (results, stage
+    times, PIV dataset before masking)."""
+    cc = nadir_camera_config(h, w)
+    times = {}
+    piv, q = run_chain(proj, NS_WINDOW, cc, times, f"[{_fmt(NS_WINDOW)}px]", overlap=NS_OVERLAP)
+    return check_chain(piv, q, cc, _fmt(NS_WINDOW), abs_tol=NS_VEL_TOL), times, piv
+
+
+def wide_ensemble_phase(proj, h, w, camera=ENS_CAMERA):
+    """Drive ensemble PIV at ENS_WIDE_WINDOW px (the kernel's packed layout) on
+    the ensemble slice's projected stack ``proj`` (camera frames h x w):
+    get_piv -> spatial masks -> get_transect -> get_q -> get_river_flow, held
+    to the truth as the ensemble slice is. Returns (results, stage times,
+    PIV dataset before masking)."""
+    cc = nadir_camera_config(h, w, window_size=ENS_WINDOW, **camera)
+    times = {}
+    tag = f"[ens {ENS_WIDE_WINDOW}px]"
+    piv, q = run_chain(proj, ENS_WIDE_WINDOW, cc, times, tag, aoi_px=camera["aoi_px"], ensemble=True)
+    if piv["v_x"].values.shape[0] != 1:
+        raise AssertionError(f"ensemble PIV has {piv['v_x'].values.shape[0]} time steps, not 1")
+    return check_chain(piv, q, cc, ENS_WIDE_WINDOW, rel_tol=ENS_VEL_RTOL, fps=ENS_FPS), times, piv
 
 
 def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
@@ -570,12 +617,19 @@ def compare_ensemble(frames, args, label, corr_min=CORR_MIN, s2n_min=S2N_MIN):
     return kern, errors
 
 
+def _fmt(size):
+    """A window (int, or (y, x)) as it appears in labels: "16" or "64x128"."""
+    return "x".join(map(str, size)) if isinstance(size, tuple) else str(size)
+
+
 def _grid(dim_size, w_px, step=None):
-    """(dim_size, sas, overlap, n_rows, n_cols) of square w_px windows at ``step`` (default w_px // 2)."""
+    """(dim_size, sas, overlap, n_rows, n_cols) of windows ``w_px`` (an int for
+    square ones, or (y, x)) at ``step`` (the same; default half the window)."""
     from pyorc_tpu_torch.ops import windows as win
 
-    step = w_px // 2 if step is None else step
-    sas, overlap = (w_px, w_px), (w_px - step, w_px - step)
+    sas = tuple(win._as2(w_px))
+    steps = tuple(s // 2 for s in sas) if step is None else tuple(win._as2(step))
+    overlap = (sas[0] - steps[0], sas[1] - steps[1])
     return (tuple(dim_size), sas, overlap, *win.get_field_shape(dim_size, sas, overlap))
 
 
@@ -591,7 +645,7 @@ def kernel_phase(device):
     out = {}
     for size, stride in [(s, 1) for s in KERNEL_SIZES] + [(s, 2) for s in STRIDE2_SIZES]:
         args = _grid((h, w), size)
-        label = f"kernel {size} px" + ("" if stride == 1 else f", pair_stride {stride}")
+        label = f"kernel {_fmt(size)} px" + ("" if stride == 1 else f", pair_stride {stride}")
         _, row = compare_kernel(frames, args, label, stride)
         row["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args, pair_stride=stride))
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=stride))
@@ -612,7 +666,8 @@ def ensemble_kernel_phase(device):
     out = {}
     for size, step in ENS_KERNEL_CASES:
         args = _grid((h, w), size, step)
-        label = f"ensemble kernel {size} px" + ("" if 2 * step == size else f", step {step}")
+        half = args[2] == tuple(s // 2 for s in args[1])  # the overlap is half the window
+        label = f"ensemble kernel {_fmt(size)} px" + ("" if half else f", step {_fmt(step)}")
         _, row = compare_ensemble(frames, args, label)
         row["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args))
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
@@ -638,7 +693,7 @@ def main_path_check(proj, pivs, device, reps=10):
     out = {}
     for w_px, piv in pivs.items():
         args = _grid(frames.shape[1:], w_px)
-        label = f"main path {w_px} px"
+        label = f"main path {_fmt(w_px)} px"
         (u, v, _, _), out[w_px] = compare_kernel(frames, args, label)
         for name, disp in (("v_x", u), ("v_y", v)):
             want = (disp.cpu().numpy() * RES / dt).astype(np.float32)
@@ -713,7 +768,7 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
     return out
 
 
-def ensemble_main_path_check(proj, piv, device, reps=3):
+def ensemble_main_path_check(proj, piv, device, window=ENS_WINDOW, reps=3):
     """The ensemble kernel against its plain version on the projected stack the slice gave it.
 
     The kernel runs in one launch over the whole stack (the engine may have
@@ -728,8 +783,8 @@ def ensemble_main_path_check(proj, piv, device, reps=3):
     from pyorc_tpu_torch.ops import piv_kernels
 
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
-    args = _grid(frames.shape[1:], ENS_WINDOW)
-    label = f"ensemble main path {ENS_WINDOW} px"
+    args = _grid(frames.shape[1:], window)
+    label = f"ensemble main path {window} px"
     (corr_sum, count, _, _), out = compare_ensemble(frames, args, label)
     u, v, gap = _mean_plane_uv(corr_sum, count, args[3], args[4])
     low = (count < COUNT_MIN * (frames.shape[0] - 1)).reshape(gap.shape).cpu().numpy()
@@ -767,8 +822,9 @@ def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
     """Run the slices under ``torch.profiler``; returns per-stage times [ms] and idle share.
 
     ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
-    per-pair slice (whose projected stack the multipass slice reuses) and
-    the ensemble slice. A stage's device time is the union of
+    per-pair slice (whose projected stack the multipass and non-square
+    slices reuse) and the ensemble slice (whose projected stack the wide
+    ensemble slice reuses). A stage's device time is the union of
     the device events (kernels and copies) that fall inside its host time
     range; every stage ends with a copy to the host, so its device work
     finishes inside that range. ``copy_ms`` is the part spent in
@@ -783,10 +839,12 @@ def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
     with profile(activities=activities) as prof:
         _, times, proj, _ = slice_phase(*slice_shape, device)
         _, mp_times, _ = multipass_phase(proj, *slice_shape[:2])
+        _, ns_times, _ = non_square_phase(proj, *slice_shape[:2])
         del proj
-        _, ens_times, _, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
-    times.update(mp_times)
-    times.update(ens_times)
+        _, ens_times, ens_proj, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
+        _, wide_times, _ = wide_ensemble_phase(ens_proj, *ens_shape[:2], camera=ens_camera)
+    for more in (mp_times, ns_times, ens_times, wide_times):
+        times.update(more)
     events = prof.events()
     ranges = {e.name: e.time_range for e in events if e.name in times and e.device_type.name == "CPU"}
     device_events = [e for e in events if e.device_type.name == "CUDA" and e.name not in times]
@@ -812,14 +870,27 @@ def _print_card(torch):
 
 
 def _drive(piv_kernels, kernel, run):
-    """Run one main path with every launch count at 0; returns (its result, the kernel's launches)."""
+    """Run one main path with every launch count at 0; returns (its result, the kernel's launches).
+
+    Every call of the engine's entry point (``piv_pairs_routed`` or
+    ``piv_ensemble_routed``) in the run must have taken the CUDA kernel."""
+    from unittest import mock
+
+    routed = getattr(piv_kernels, f"{kernel}_routed")
+    routes = []
+
+    def recorded(*args, **kwargs):
+        out = routed(*args, **kwargs)
+        routes.append(piv_kernels.KERNEL_ROUTE.get(f"{kernel}_fused"))
+        return out
+
     for name in piv_kernels.LAUNCHES:
         piv_kernels.LAUNCHES[name] = 0
-    out = run()
+    with mock.patch.object(piv_kernels, f"{kernel}_routed", recorded):
+        out = run()
     launches = piv_kernels.LAUNCHES[kernel]
-    route = piv_kernels.KERNEL_ROUTE.get(f"{kernel}_fused")
-    if launches <= 0 or route != "cuda":
-        raise AssertionError(f"main path did not run the {kernel} CUDA kernel (launches={launches}, route={route})")
+    if launches <= 0 or not routes or set(routes) != {"cuda"}:
+        raise AssertionError(f"main path did not run the {kernel} CUDA kernel (launches={launches}, routes={routes})")
     return out, launches
 
 
@@ -877,8 +948,19 @@ def main(argv) -> int:
           + json.dumps({k: round(v, 4) for k, v in mp_times.items()}))
     print("multipass slice results " + json.dumps(mp_results))
     print("single-pass slice results beside them " + json.dumps(results))
-    mp_main = multipass_main_path_check(proj, mp_pivs[32], device)
-    del proj, mp_pivs
+    mp_main = {w_px: multipass_main_path_check(proj, mp_pivs[w_px], device, w_px) for w_px in mp_pivs}
+    del mp_pivs
+
+    t0 = time.perf_counter()
+    (ns_results, ns_times, ns_piv), ns_launches = _drive(
+        piv_kernels, "piv_pairs", lambda: non_square_phase(proj, 1080, 1920)
+    )
+    wall = time.perf_counter() - t0
+    print(f"non-square slice {_fmt(NS_WINDOW)} px on the projected stack: wall {wall:.3f} s; {ns_launches} launches; "
+          "stages " + json.dumps({k: round(v, 4) for k, v in ns_times.items()}))
+    print("non-square slice results " + json.dumps(ns_results))
+    ns_main = main_path_check(proj, {NS_WINDOW: ns_piv}, device)[NS_WINDOW]
+    del proj, ns_piv
 
     h, w = ENS_SHAPE
     t0 = time.perf_counter()
@@ -890,26 +972,48 @@ def main(argv) -> int:
           + json.dumps({k: round(v, 4) for k, v in ens_times.items()}))
     print("ensemble slice results " + json.dumps(ens_results))
     ens_main = ensemble_main_path_check(ens_proj, ens_piv, device)
+    del ens_piv
+
+    t0 = time.perf_counter()
+    (wide_results, wide_times, wide_piv), wide_launches = _drive(
+        piv_kernels, "piv_ensemble", lambda: wide_ensemble_phase(ens_proj, h, w)
+    )
+    wall = time.perf_counter() - t0
+    print(f"wide ensemble slice {ENS_WIDE_WINDOW} px on the projected 4K stack: wall {wall:.3f} s; "
+          f"{wide_launches} launches; stages " + json.dumps({k: round(v, 4) for k, v in wide_times.items()}))
+    print("wide ensemble slice results " + json.dumps(wide_results))
+    wide_main = ensemble_main_path_check(ens_proj, wide_piv, device, ENS_WIDE_WINDOW)
+    del ens_proj, wide_piv
 
     main_size = 16
-    coarse = mp_main["passes"][0]  # the 128 px pass
+    coarse = mp_main[32]["passes"][0]  # the 128 px pass
+    ns = _fmt(NS_WINDOW)
     record = {"kernels": [
         {
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
-            "replaces": "pyorc_tpu/ops/piv_pallas.py:957", "launches": pairs_launches + mp_launches,
-            "max_abs_err": max(e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), mp_main]),
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
+            "launches": pairs_launches + mp_launches + ns_launches,
+            "max_abs_err": max(
+                e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), *mp_main.values(), ns_main]
+            ),
             "ms": main_errs[main_size]["ms"], "plain_ms": main_errs[main_size]["plain_ms"],
             "bound_ms": main_errs[main_size]["bound_ms"], "bound_by": main_errs[main_size]["bound_by"],
             "library_ms": None,
             "multipass_launches": mp_launches, "ms_128px": coarse["ms"], "plain_ms_128px": coarse["plain_ms"],
             "bound_ms_128px": coarse["bound_ms"], "bound_by_128px": coarse["bound_by"],
+            f"launches_{ns}px": ns_launches, f"ms_{ns}px": ns_main["ms"], f"plain_ms_{ns}px": ns_main["plain_ms"],
+            f"bound_ms_{ns}px": ns_main["bound_ms"], f"bound_by_{ns}px": ns_main["bound_by"],
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",
-            "replaces": "pyorc_tpu/ops/piv_pallas.py:1297", "launches": ens_launches,
-            "max_abs_err": max(e["max_abs_duv_px"] for e in [*ens_kern.values(), ens_main]),
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:1297", "launches": ens_launches + wide_launches,
+            "max_abs_err": max(e["max_abs_duv_px"] for e in [*ens_kern.values(), ens_main, wide_main]),
             "ms": ens_main["ms"], "plain_ms": ens_main["plain_ms"],
             "bound_ms": ens_main["bound_ms"], "bound_by": ens_main["bound_by"], "library_ms": None,
+            f"launches_{ENS_WIDE_WINDOW}px": wide_launches, f"ms_{ENS_WIDE_WINDOW}px": wide_main["ms"],
+            f"plain_ms_{ENS_WIDE_WINDOW}px": wide_main["plain_ms"],
+            f"bound_ms_{ENS_WIDE_WINDOW}px": wide_main["bound_ms"],
+            f"bound_by_{ENS_WIDE_WINDOW}px": wide_main["bound_by"],
         },
     ]}
     print(json.dumps(record))

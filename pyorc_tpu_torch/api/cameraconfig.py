@@ -47,7 +47,7 @@ class CameraConfig:
         height: int,
         width: int,
         crs: Optional[Any] = None,
-        window_size: int = 10,
+        window_size: Union[int, List[int]] = 10,
         resolution: float = 0.05,
         bbox: Optional[Union[shapes.Polygon, str]] = None,
         camera_matrix: Optional[List[List[float]]] = None,
@@ -64,7 +64,13 @@ class CameraConfig:
     ):
         assert isinstance(height, int), 'height must be provided as type "int"'
         assert isinstance(width, int), 'width must be provided as type "int"'
-        assert isinstance(window_size, int), 'window_size must be of type "int"'
+        # an int, or the (y, x) pair that get_piv with a non-square window writes
+        # into its dataset's camera_config (the JAX package refuses that on reload:
+        # ROADMAP.md, queue C)
+        pair = isinstance(window_size, (list, tuple)) and len(window_size) == 2
+        assert isinstance(window_size, int) or (pair and all(isinstance(w, int) for w in window_size)), (
+            'window_size must be of type "int" or a pair of them'
+        )
         self.height = height
         self.width = width
         self.is_nadir = is_nadir

@@ -10,11 +10,14 @@ correlation valid under shear. Between passes the Westerweel-Scarano
 normalized median test replaces outliers and NaNs by their neighbourhood
 median, so the predictor field stays smooth.
 
-Each pass's correlation is :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`
+Each pass's correlation is :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_routed`
 on the interleaved deformed pairs (a0, b0, a1, b1, ...) with
-``pair_stride=2``: the CUDA kernel on the GPU (which takes square windows of
-8-128 px, so every pass of ``window_size`` 32 or 25 with ``passes=3``), its
-plain version on the CPU. The deformation, the median test and the
+``pair_stride=2``: the CUDA kernel on the GPU for windows with sides of
+8-128 px (every pass of ``window_size`` 32 or 25 with ``passes=3``), its
+plain version on the CPU. A coarser pass (256 px for ``window_size`` 64 and
+``passes=3``) goes by plan to the XLA-semantics pipeline
+:func:`pyorc_tpu_torch.ops.piv.piv_pairs`, as the JAX package's kernel route
+sends it to its XLA pipeline. The deformation, the median test and the
 predictor's resampling are plain tensor ops in float32.
 
 ``map_coordinates(order=1, mode="nearest")`` of the JAX package is written
@@ -244,7 +247,7 @@ def piv_multipass(
             pairs = _deformed_pairs(a_stack, b_stack, u, v, rows_prev, cols_prev)
             u_pred = _grid_to_grid(u, rows_prev, cols_prev, rows_k, cols_k)
             v_pred = _grid_to_grid(v, rows_prev, cols_prev, rows_k, cols_k)
-        du, dv, cmax, s2n = piv_kernels.piv_pairs_fused(
+        du, dv, cmax, s2n = piv_kernels.piv_pairs_routed(
             pairs, dim_size, ws, ov, nr_k, nc_k, signal_threshold, pair_stride=2
         )
         del pairs

@@ -110,13 +110,16 @@ def _pair_windows(imgs: torch.Tensor, dim_size, sas, overlap, pair_stride: int =
     return w[0 : n_pairs * pair_stride : pair_stride], w[1 : n_pairs * pair_stride : pair_stride]
 
 
-def cross_corr(imgs: torch.Tensor, dim_size, sas, overlap, signal_threshold: Optional[float] = None) -> torch.Tensor:
-    """Correlation planes [T-1, n_windows, wy, wx] of all consecutive pairs.
+def cross_corr(
+    imgs: torch.Tensor, dim_size, sas, overlap, signal_threshold: Optional[float] = None, pair_stride: int = 1
+) -> torch.Tensor:
+    """Correlation planes [n_pairs, n_windows, wy, wx] of the pairs at ``pair_stride``
+    (all consecutive pairs at 1, interleaved explicit pairs at 2).
 
     Windows whose pair has a fraction of non-zero pixels below
     ``signal_threshold`` get NaN planes.
     """
-    wa, wb = _pair_windows(imgs, dim_size, sas, overlap)
+    wa, wb = _pair_windows(imgs, dim_size, sas, overlap, pair_stride)
     corr, _ = _normalized_corr_planes(wa, wb)
     if signal_threshold is not None:
         ok = _pair_signal(wa, wb) >= signal_threshold
@@ -206,10 +209,12 @@ def u_v_displacement(corr: torch.Tensor, n_rows: int, n_cols: int) -> Tuple[torc
     return u, v
 
 
-def piv_pairs(imgs: torch.Tensor, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None):
+def piv_pairs(imgs: torch.Tensor, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, pair_stride=1):
     """Per-pair PIV with the JAX package's XLA semantics: frames [T, H, W] ->
-    (u, v, corr_max, s2n), each [T-1, n_rows, n_cols]."""
-    corr = cross_corr(imgs, dim_size, sas, overlap, signal_threshold)
+    (u, v, corr_max, s2n), each [n_pairs, n_rows, n_cols]. ``pair_stride=2``
+    correlates interleaved explicit pairs, the pairs the JAX package keeps
+    (``[::2]``) when it sends multipass stacks to this pipeline."""
+    corr = cross_corr(imgs, dim_size, sas, overlap, signal_threshold, pair_stride)
     corr_max, s2n = corr_stats(corr)
     u, v = u_v_displacement(corr, n_rows, n_cols)
     return u, v, corr_max.reshape(-1, n_rows, n_cols), s2n.reshape(-1, n_rows, n_cols)

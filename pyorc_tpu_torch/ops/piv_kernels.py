@@ -11,27 +11,29 @@ is one CUDA kernel under ``pyorc_tpu_torch/csrc/``:
 
   with ``n_pairs = T - 1`` for consecutive frames (``pair_stride=1``) or
   ``T // 2`` for interleaved explicit pairs (``pair_stride=2``, what
-  multipass PIV gives it). It takes square windows of 8-128 px on any
-  uniform step (the square geometry of ``piv_pallas._fused_geometry_ok``). Its
-  semantics are those of the Pallas kernels (``piv_pallas._finish_corr`` and
-  the NaN stores): a window pair with a zero-variance window gives NaN
-  ``u``/``v``, ``corr_max = 0`` and ``s2n = 0`` (the guarded
-  ``max / max(mean, 1e-10)``). With ``signal_threshold`` set, a pair whose
-  smaller fraction of non-zero pixels falls below it gives NaN in all four
-  outputs.
+  multipass PIV gives it). Its semantics are those of the Pallas kernels
+  (``piv_pallas._finish_corr`` and the NaN stores): a window pair with a
+  zero-variance window gives NaN ``u``/``v``, ``corr_max = 0`` and
+  ``s2n = 0`` (the guarded ``max / max(mean, 1e-10)``). With
+  ``signal_threshold`` set, a pair whose smaller fraction of non-zero pixels
+  falls below it gives NaN in all four outputs.
 - ``piv_ensemble_fused`` (``csrc/piv_ensemble.cu``, Pallas B4-B5): ensemble
   PIV, the contract of :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`,
 
       frames [T, H, W] -> (corr_sum [n_windows, wy, wx], corr_count [n_windows],
                            corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols])
 
-  for square windows of 8-64 px on any uniform step.
-
-Each wrapper launches its kernel for a CUDA tensor, or raises; for a CPU
-tensor it runs its plain PyTorch version (``*_plain``); a geometry its
-kernel does not take (non-square, or wider than ``PAIRS_MAX_WINDOW`` /
-``ENSEMBLE_MAX_WINDOW``) raises on CUDA. The kernels are
-compiled with ``nvcc`` for ``sm_90a`` at first use into one library under
+Both kernels take wy x wx windows with each side from ``MIN_WINDOW`` to
+``MAX_WINDOW`` px (8-128), square or not, on any uniform step
+(:func:`kernel_takes`): every geometry the Pallas kernels take. Each wrapper
+launches its kernel for a CUDA tensor, or raises; for a CPU tensor it runs
+its plain PyTorch version (``*_plain``). A side outside 8-128 px raises on
+CUDA. ``piv_pairs_routed`` and ``piv_ensemble_routed`` are what the engine
+and multipass call: by plan, windows the kernels do not take go to the
+XLA-semantics pipeline of :mod:`pyorc_tpu_torch.ops.piv`, as the JAX package
+sends them to its XLA pipeline (``piv_pallas.py:1514-1521``, ``:2079-2083``),
+and the route is recorded as ``"torch_ops"``. The kernels are compiled with
+``nvcc`` for ``sm_90a`` at first use into one library under
 ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
 """
 
@@ -56,16 +58,19 @@ __all__ = [
     "piv_pairs_fused_plain",
     "piv_ensemble_fused",
     "piv_ensemble_fused_plain",
+    "piv_pairs_routed",
+    "piv_ensemble_routed",
+    "kernel_takes",
     "KERNEL_ROUTE",
     "LAUNCHES",
     "build_library",
     "MIN_WINDOW",
-    "PAIRS_MAX_WINDOW",
-    "ENSEMBLE_MAX_WINDOW",
+    "MAX_WINDOW",
 ]
 
-# Route the last call of each entry point took: "cuda" (the kernel) or
-# "plain_cpu" (the plain version on a CPU tensor). Tests and the chip smoke
+# Route the last call of each entry point took: "cuda" (the kernel),
+# "plain_cpu" (the plain version on a CPU tensor) or "torch_ops" (a window
+# the kernels do not take, by plan). Tests and the chip smoke
 # run assert on it, so a path that skips the kernel cannot pass unnoticed.
 KERNEL_ROUTE: dict = {}
 # Launches of each kernel since import (or since a caller reset them to 0);
@@ -73,8 +78,7 @@ KERNEL_ROUTE: dict = {}
 LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0}
 
 MIN_WINDOW = 8
-PAIRS_MAX_WINDOW = 128
-ENSEMBLE_MAX_WINDOW = 64
+MAX_WINDOW = 128
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
@@ -139,12 +143,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # frames
         ctypes.c_int,  # frames are uint8 (1) or float32 (0)
         ctypes.c_int, ctypes.c_int,  # H, W
-        ctypes.c_int,  # window size
+        ctypes.c_int, ctypes.c_int,  # wy, wx
         ctypes.c_int, ctypes.c_int,  # step_y, step_x
         ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
         ctypes.c_int, ctypes.c_int,  # n_pairs, pair_stride
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
-        ctypes.c_void_p, ctypes.c_void_p,  # cos, sin tables
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # cos/sin tables of y, of x
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # u, v, cmax, s2n
         ctypes.c_void_p,  # cudaStream_t
     ]
@@ -154,13 +158,13 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # frames
         ctypes.c_int,  # frames are uint8 (1) or float32 (0)
         ctypes.c_int, ctypes.c_int,  # H, W
-        ctypes.c_int,  # window size
+        ctypes.c_int, ctypes.c_int,  # wy, wx
         ctypes.c_int, ctypes.c_int,  # step_y, step_x
         ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
         ctypes.c_int,  # n_frames
         ctypes.c_float, ctypes.c_float,  # corr_min, s2n_min
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
-        ctypes.c_void_p, ctypes.c_void_p,  # cos, sin tables
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # cos/sin tables of y, of x
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # corr_sum, count, cmax, s2n
         ctypes.c_void_p,  # cudaStream_t
     ]
@@ -168,7 +172,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _dft_tables(n: int, device: torch.device):
     """float32 cos/sin tables of the n-point DFT (made in float64) on ``device``."""
     c, s = piv_ops._dft_mats(n)
@@ -185,14 +189,22 @@ def _grid_steps(dim_size, sas, overlap, n_rows, n_cols):
     return sas[0] - overlap[0], sas[1] - overlap[1]
 
 
-def _kernel_frames(imgs, sas, name, max_window):
-    """Check what a kernel takes (square windows of MIN_WINDOW to ``max_window``
-    px, a [T, H, W] stack); return the frames as a contiguous uint8 or float32 tensor."""
-    wy, wx = sas
-    if wy != wx or not MIN_WINDOW <= wx <= max_window:
+def kernel_takes(sas) -> bool:
+    """Whether the CUDA kernels take wy x wx windows ``sas``: each side of
+    MIN_WINDOW-MAX_WINDOW px, square or not (the plan the engine and
+    multipass check before any launch)."""
+    wy, wx = win._as2(sas)
+    return MIN_WINDOW <= wy <= MAX_WINDOW and MIN_WINDOW <= wx <= MAX_WINDOW
+
+
+def _kernel_frames(imgs, sas, name):
+    """Check what the kernels take (sides of MIN_WINDOW-MAX_WINDOW px, a
+    [T, H, W] stack); return the frames as a contiguous uint8 or float32 tensor."""
+    if not kernel_takes(sas):
         raise ValueError(
-            f"{name}: the CUDA kernel takes square windows of {MIN_WINDOW}-{max_window} px, "
-            f"got {wy}x{wx} (larger and non-square windows are listed in ROADMAP.md, queue B)"
+            f"{name}: the CUDA kernel takes windows with sides of {MIN_WINDOW}-{MAX_WINDOW} px, "
+            f"got {sas[0]}x{sas[1]} (larger windows go to the plain tensor ops by plan: "
+            f"piv_pairs_routed / piv_ensemble_routed; ROADMAP.md, queue B)"
         )
     if imgs.dim() != 3:
         raise ValueError(f"{name}: frames must be [T, H, W], got shape {tuple(imgs.shape)}")
@@ -201,23 +213,26 @@ def _kernel_frames(imgs, sas, name, max_window):
     return imgs.contiguous()
 
 
+def _tables(sas, device):
+    """(cos_y, sin_y, cos_x, sin_x) device pointers of the DFT tables of both axes."""
+    return [t.data_ptr() for n in sas for t in _dft_tables(n, device)]
+
+
 def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
-    imgs = _kernel_frames(imgs, sas, "piv_pairs_fused", PAIRS_MAX_WINDOW)
+    imgs = _kernel_frames(imgs, sas, "piv_pairs_fused")
     t, h, w = imgs.shape
     n_pairs = t - 1 if pair_stride == 1 else t // pair_stride
     if n_pairs < 1 or n_pairs > 65535:
         raise ValueError(f"piv_pairs_fused: {n_pairs} pairs per launch; the kernel takes 1-65535")
     device = imgs.device
-    cos_t, sin_t = _dft_tables(sas[1], device)
     outs = [torch.empty((n_pairs, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(4)]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _library().piv_pairs_launch(
-            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[1], steps[0], steps[1],
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[0], sas[1], steps[0], steps[1],
             n_rows, n_cols, n_pairs, pair_stride,
             int(signal_threshold is not None), float(signal_threshold or 0.0),
-            cos_t.data_ptr(), sin_t.data_ptr(),
-            *(o.data_ptr() for o in outs), stream,
+            *_tables(sas, device), *(o.data_ptr() for o in outs), stream,
         )
     if err != 0:
         raise RuntimeError(f"piv_pairs_fused: CUDA kernel launch failed (cudaError {err})")
@@ -226,23 +241,21 @@ def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
 
 
 def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold):
-    imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused", ENSEMBLE_MAX_WINDOW)
+    imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused")
     t, h, w = imgs.shape
     if t < 2:
         raise ValueError(f"piv_ensemble_fused: {t} frames per launch; the kernel needs at least 2")
     device = imgs.device
-    n = sas[1]
-    cos_t, sin_t = _dft_tables(n, device)
-    corr_sum = torch.empty((n_rows * n_cols, n, n), dtype=torch.float32, device=device)
+    corr_sum = torch.empty((n_rows * n_cols, sas[0], sas[1]), dtype=torch.float32, device=device)
     count = torch.empty((n_rows * n_cols,), dtype=torch.float32, device=device)
     cmax, s2n = (torch.empty((t - 1, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _library().piv_ensemble_launch(
-            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, n, steps[0], steps[1],
+            imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[0], sas[1], steps[0], steps[1],
             n_rows, n_cols, t, float(corr_min), float(s2n_min),
             int(signal_threshold is not None), float(signal_threshold or 0.0),
-            cos_t.data_ptr(), sin_t.data_ptr(),
+            *_tables(sas, device),
             corr_sum.data_ptr(), count.data_ptr(), cmax.data_ptr(), s2n.data_ptr(), stream,
         )
     if err != 0:
@@ -372,6 +385,50 @@ def piv_ensemble_fused_plain(
     if imgs.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    return piv_ops.piv_ensemble_scan(
+        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
+    )
+
+
+def piv_pairs_routed(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    signal_threshold: Optional[float] = None,
+    pair_stride: int = 1,
+):
+    """Per-pair PIV by plan: :func:`piv_pairs_fused` where :func:`kernel_takes`
+    the windows, else :func:`pyorc_tpu_torch.ops.piv.piv_pairs` (the XLA
+    pipeline's semantics, as the JAX package routes such windows), recorded
+    as route ``"torch_ops"``. Never a fallback: a kernel that fails raises."""
+    if kernel_takes(sas):
+        return piv_pairs_fused(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride=pair_stride)
+    KERNEL_ROUTE["piv_pairs_fused"] = "torch_ops"
+    return piv_ops.piv_pairs(
+        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, signal_threshold, pair_stride
+    )
+
+
+def piv_ensemble_routed(
+    imgs: torch.Tensor,
+    dim_size,
+    sas,
+    overlap,
+    n_rows: int,
+    n_cols: int,
+    corr_min: float = 0.2,
+    s2n_min: float = 3.0,
+    signal_threshold: Optional[float] = None,
+):
+    """Ensemble PIV by plan: :func:`piv_ensemble_fused` where :func:`kernel_takes`
+    the windows, else :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`,
+    recorded as route ``"torch_ops"``."""
+    if kernel_takes(sas):
+        return piv_ensemble_fused(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
+    KERNEL_ROUTE["piv_ensemble_fused"] = "torch_ops"
     return piv_ops.piv_ensemble_scan(
         imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
     )

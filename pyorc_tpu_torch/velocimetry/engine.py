@@ -3,12 +3,14 @@
 Port of :mod:`pyorc_tpu.velocimetry.engine` (reference
 ``pyorc/velocimetry/ffpiv.py:24-474``). Frames stream through the device in
 memory-sized chunks with a one-frame overlap; each chunk runs the per-pair
-PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_fused`,
+PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_routed`,
 with ``passes > 1`` multi-pass PIV with window deformation through
 :func:`pyorc_tpu_torch.ops.multipass.piv_multipass` (the same kernel on each
 pass) or, with ``ensemble_corr=True``, the ensemble contract through
-:func:`pyorc_tpu_torch.ops.piv_kernels.piv_ensemble_fused` (the CUDA kernels
-on the GPU), and a device out-of-memory error splits the chunk in two.
+:func:`pyorc_tpu_torch.ops.piv_kernels.piv_ensemble_routed` (the CUDA kernels
+on the GPU for windows with sides of 8-128 px; larger windows go to the
+plain tensor ops by plan, as in the JAX package), and a device out-of-memory
+error splits the chunk in two.
 Multi-device sharding is not ported yet (ROADMAP.md, queue A).
 
 As in the JAX package, the ensemble ``count_min`` filter compares pair
@@ -160,7 +162,7 @@ def _piv_timestep(
                 frames, dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold
             )
         else:
-            out = piv_kernels.piv_pairs_fused(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
+            out = piv_kernels.piv_pairs_routed(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
         return tuple(o.cpu().numpy() for o in out)
 
     us, vs, cms, s2ns = [], [], [], []
@@ -203,7 +205,7 @@ def _piv_ensemble(
     n_pairs_total = data.shape[0] - 1
 
     def run_one(chunk):
-        cs, cc, cmax, s2n = piv_kernels.piv_ensemble_fused(
+        cs, cc, cmax, s2n = piv_kernels.piv_ensemble_routed(
             _to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
         )
         return cs, cc, cmax.cpu().numpy(), s2n.cpu().numpy()

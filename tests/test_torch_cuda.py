@@ -86,13 +86,34 @@ def test_kernel_signal_threshold(cuda):
     _compare(out_k, out_p, _gap(frames, (h, w), sas, overlap, 1, out_p[0].shape))
 
 
+@pytest.mark.parametrize("sas", [(64, 128), (128, 64), (32, 64), (16, 40), (72, 24), (75, 66)])
+@pytest.mark.parametrize("pair_stride", [1, 2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_kernel_matches_plain_non_square(cuda, sas, pair_stride, dtype):
+    """Non-square windows in both layouts (small: both sides <= 64; packed: a side over 64), 50 % overlap."""
+    wy, wx = sas
+    rng = np.random.default_rng(wy * 1000 + wx)
+    h, w = 4 * wy + 20, 5 * wx + 8
+    frames = torch.as_tensor(_frames(rng, 6, h, w, zero_band=sas == (32, 64), dtype=dtype), device=cuda)
+    overlap = (wy // 2, wx // 2)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    args = ((h, w), sas, overlap, n_rows, n_cols)
+    before = piv_kernels.LAUNCHES["piv_pairs"]
+    out_k = piv_kernels.piv_pairs_fused(frames, *args, pair_stride=pair_stride)
+    assert piv_kernels.LAUNCHES["piv_pairs"] == before + 1
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "cuda"
+    out_p = piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
+    torch.cuda.synchronize()
+    _compare(out_k, out_p, _gap(frames, (h, w), sas, overlap, pair_stride, out_p[0].shape))
+
+
 def test_kernel_raises_on_unsupported_geometry(cuda):
     frames = torch.zeros((3, 300, 300), device=cuda)
-    for sas in ((130, 130), (32, 16), (128, 96)):
+    for sas in ((130, 130), (6, 6), (136, 64)):
         overlap = (sas[0] // 2, sas[1] // 2)
         n_rows, n_cols = win.get_field_shape((300, 300), sas, overlap)
         before = piv_kernels.LAUNCHES["piv_pairs"]
-        with pytest.raises(ValueError, match="square windows of 8-128 px.*ROADMAP.md, queue B"):
+        with pytest.raises(ValueError, match="sides of 8-128 px.*ROADMAP.md, queue B"):
             piv_kernels.piv_pairs_fused(frames, (300, 300), sas, overlap, n_rows, n_cols)
         assert piv_kernels.LAUNCHES["piv_pairs"] == before
 
@@ -109,13 +130,22 @@ def _compare_ensemble(out_k, out_p, corr_min):
     assert ((s_k - s_p).abs() / s_p.clamp(min=1e-6)).max() <= 1e-3
 
 
-@pytest.mark.parametrize("size,step", [(8, 4), (16, 8), (26, 13), (32, 16), (32, 12), (64, 32)])
+@pytest.mark.parametrize(
+    "size,step",
+    [
+        (8, 4), (16, 8), (26, 13), (32, 16), (32, 12), (64, 32), (75, 37), (104, 52), (128, 64),
+        ((64, 128), (32, 64)), ((16, 40), (8, 12)), ((128, 72), (40, 36)),
+    ],
+    ids=lambda v: "x".join(map(str, win._as2(v))),
+)
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_ensemble_kernel_matches_plain(cuda, size, step, dtype):
-    rng = np.random.default_rng(size + step)
-    h, w = 4 * size + 20, 6 * size + 8
-    frames = torch.as_tensor(_frames(rng, 7, h, w, zero_band=size == 32, dtype=dtype), device=cuda)
-    sas, overlap = (size, size), (size - step, size - step)
+    """Square windows of 8-128 px (the packed layout over 64) and non-square ones, 7 frames."""
+    sas, steps = win._as2(size), win._as2(step)
+    rng = np.random.default_rng(sas[0] + sas[1] + steps[0])
+    h, w = 4 * sas[0] + 20, 6 * sas[1] + 8
+    frames = torch.as_tensor(_frames(rng, 7, h, w, zero_band=sas[0] == 32, dtype=dtype), device=cuda)
+    overlap = (sas[0] - steps[0], sas[1] - steps[1])
     n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
     args = ((h, w), sas, overlap, n_rows, n_cols, 0.1, 1.5)
     before = piv_kernels.LAUNCHES["piv_ensemble"]
@@ -145,9 +175,11 @@ def test_ensemble_kernel_signal_threshold(cuda):
 
 
 def test_ensemble_kernel_raises_on_unsupported_geometry(cuda):
-    frames = torch.zeros((3, 200, 200), device=cuda)
-    for sas in ((96, 96), (32, 16)):
+    frames = torch.zeros((3, 300, 300), device=cuda)
+    for sas in ((130, 130), (6, 6), (136, 64)):
         overlap = (sas[0] // 2, sas[1] // 2)
-        n_rows, n_cols = win.get_field_shape((200, 200), sas, overlap)
-        with pytest.raises(ValueError, match="square windows"):
-            piv_kernels.piv_ensemble_fused(frames, (200, 200), sas, overlap, n_rows, n_cols)
+        n_rows, n_cols = win.get_field_shape((300, 300), sas, overlap)
+        before = piv_kernels.LAUNCHES["piv_ensemble"]
+        with pytest.raises(ValueError, match="sides of 8-128 px.*ROADMAP.md, queue B"):
+            piv_kernels.piv_ensemble_fused(frames, (300, 300), sas, overlap, n_rows, n_cols)
+        assert piv_kernels.LAUNCHES["piv_ensemble"] == before

@@ -45,7 +45,9 @@ def _stack(rng, dims, n_frames, zero_band=False, dark=False):
 
 
 def _grid(dims, sas, step):
-    overlap = (sas[0] - step, sas[1] - step)
+    """(dims, sas, overlap, n_rows, n_cols); ``step`` is an int or a (y, x) pair."""
+    sy, sx = (step, step) if isinstance(step, int) else step
+    overlap = (sas[0] - sy, sas[1] - sx)
     return dims, sas, overlap, *jwin.get_field_shape(dims, sas, overlap)
 
 
@@ -70,8 +72,9 @@ def _assert_close(got, want, atol, s2n_atol=None):
         ((64, 64), (160, 224), 32, 4, None, False),
         ((32, 32), (96, 192), 12, 4, None, False),
         ((16, 16), (96, 128), 8, 4, 0.5, False),
+        ((64, 128), (192, 448), (32, 64), 4, None, True),
     ],
-    ids=["16", "26", "32-zero-even", "64", "32-step12", "16-threshold"],
+    ids=["16", "26", "32-zero-even", "64", "32-step12", "16-threshold", "64x128"],
 )
 def test_plain_ensemble_matches_jax_scan(rng, sas, dims, step, n_frames, threshold, zero_band):
     """The port's scan and the kernel's plain version against the XLA scan:
@@ -97,8 +100,10 @@ def test_plain_ensemble_matches_jax_scan(rng, sas, dims, step, n_frames, thresho
         ((16, 16), (72, 160), 8, "tileband", 5e-3, 0.15),  # B4, tests/test_piv.py:465
         ((64, 64), (160, 224), 32, "tileband", 2e-3, None),  # B4, tests/test_piv.py:432
         ((32, 32), (96, 192), 8, "sliced", 5e-3, 0.15),  # B5: a step that divides w, not w/2
+        ((104, 104), (256, 256), 52, "sliced", 2e-3, None),  # B5 over 64 px: the packed layout's geometry
+        ((128, 128), (256, 256), 64, "sliced", 2e-3, None),
     ],
-    ids=["B4-16", "B4-64", "B5-32-step8"],
+    ids=["B4-16", "B4-64", "B5-32-step8", "B5-104", "B5-128"],
 )
 def test_plain_ensemble_matches_pallas_interpret(rng, sas, dims, step, route, tol, s2n_tol):
     imgs = _stack(rng, dims, 4)
@@ -111,10 +116,10 @@ def test_plain_ensemble_matches_pallas_interpret(rng, sas, dims, step, route, to
 
 
 def test_kernel_wrapper_rejects_unsupported_geometry():
-    """Windows the ensemble kernel does not take raise before any CUDA call."""
+    """Windows the ensemble kernel does not take (a side under 8 or over 128 px) raise before any CUDA call."""
     frames = torch.zeros((3, 256, 256))
-    for sas in ((96, 96), (32, 16), (6, 6)):
-        with pytest.raises(ValueError, match="square windows.*ROADMAP.md, queue B"):
+    for sas in ((6, 6), (130, 130), (136, 64)):
+        with pytest.raises(ValueError, match="sides of 8-128 px.*ROADMAP.md, queue B"):
             piv_kernels._launch_ensemble(frames, sas, (sas[0] // 2, sas[1] // 2), 3, 3, 0.2, 3.0, None)
     with pytest.raises(ValueError, match="at least 2"):
         piv_kernels._launch_ensemble(frames[:1], (16, 16), (8, 8), 31, 31, 0.2, 3.0, None)
@@ -263,3 +268,72 @@ def test_oom_halving_matches_one_chunk(projected, monkeypatch, ensemble):
         np.testing.assert_array_equal(split[var].values, whole[var].values)
     for var in ("v_x", "v_y"):
         np.testing.assert_allclose(split[var].values, whole[var].values, rtol=1e-5, atol=1e-6)
+
+
+def test_jax_pallas_ensemble_non_square_fault():
+    """Pins the JAX package's non-square fault on its ensemble route: B5
+    builds the same ``_packed_mats`` as B2 and raises (ROADMAP C); the port's
+    non-square ensemble is held against ``piv_ensemble_scan`` instead (the
+    64x128 case above). When JAX is fixed, this test fails and says so."""
+    imgs = _stack(np.random.default_rng(3), (128, 256), 3)
+    args = _grid((128, 256), (64, 128), (32, 64))
+    with pytest.raises(ValueError, match="same shape") as err:
+        piv_pallas.piv_ensemble_fused(imgs, *args, interpret=True)
+    assert "_packed_mats" in {entry.name for entry in err.traceback}
+
+
+def test_ensemble_routes_wide_windows_to_torch_ops(projected):
+    """Windows over 128 px go by plan to the plain scan (route "torch_ops"), as
+    the JAX package sends them to its XLA scan; the engine's result is the
+    scan's."""
+    _, _, proj_t, _ = projected
+    data = torch.as_tensor(np.asarray(proj_t.values))
+    dims = tuple(data.shape[1:])
+    args = _grid(dims, (136, 136), 68)
+    out = piv_kernels.piv_ensemble_routed(data, *args)
+    assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "torch_ops"
+    want = tpiv.piv_ensemble_scan(data, *args)
+    for g, w in zip(out, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    piv = proj_t.frames.get_piv(window_size=136, overlap=(68, 68), ensemble_corr=True)
+    assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "torch_ops"
+    assert piv["v_x"].values.shape == (1, args[3], args[4])
+
+
+@pytest.fixture(scope="module")
+def projected_wide():
+    """(port cc, JAX cc, port projected frames, JAX projected frames) at 600x800,
+    where 128 px windows leave a few rows of them along the transect."""
+    pyorc_tpu_torch.set_device("cpu")
+    cc_t = chip_smoke.nadir_camera_config(600, 800, window_size=64, **CAMERA)
+    cc_j = pyorc_tpu.get_camera_config(cc_t.to_json())
+    stack = chip_smoke.advected_stack(600, 800, 8, "cpu")
+    fps = chip_smoke.ENS_FPS
+    proj_t = chip_smoke.frames_dataarray(stack, cc_t, fps=fps).frames.normalize(samples=15).frames.project()
+    proj_j = (
+        chip_smoke.frames_dataarray(stack, cc_j, pyorc_tpu, fps=fps).frames.normalize(samples=15).frames.project()
+    )
+    return cc_t, cc_j, proj_t, proj_j
+
+
+def test_wide_ensemble_chain_matches_jax(projected_wide, monkeypatch):
+    """chip_smoke's wide ensemble path (get_piv at 128 px with
+    ensemble_corr=True -> spatial masks -> transect -> Q) in both packages,
+    JAX through B5 in interpret mode (route "sliced"): v_x / v_y within
+    2e-3 m/s, corr / s2n within 2e-3, NaN masks equal, Q within 1 %, both
+    within the smoke run's bounds of the truth."""
+    monkeypatch.setenv("PYORC_TPU_ENGINE", "fused-interpret")
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    cc_t, cc_j, proj_t, proj_j = projected_wide
+    res_t, _, piv_t = chip_smoke.wide_ensemble_phase(proj_t, 600, 800, camera=CAMERA)
+    assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"
+    res_j, _, piv_j = chip_smoke.wide_ensemble_phase(proj_j, 600, 800, camera=CAMERA)
+    assert piv_pallas.KERNEL_ROUTE["piv_ensemble_fused"] == "sliced"
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        got, want = piv_t[name].values, np.asarray(piv_j[name].values)
+        assert got.shape == want.shape == (1,) + got.shape[1:]
+        assert (np.isnan(got) == np.isnan(want)).all(), name
+        np.testing.assert_allclose(got, want, atol=2e-3, equal_nan=True, err_msg=name)
+    for name in ("v_x", "v_y"):
+        assert abs(res_t[name] - res_j[name]) < 2e-3
+    assert abs(res_t["Q"] - res_j["Q"]) < 0.01 * abs(res_j["Q"])

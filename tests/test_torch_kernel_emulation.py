@@ -158,7 +158,9 @@ def kernels(emulated_library, monkeypatch):
 
 
 def _grid(h, w, size, step):
-    sas, overlap = (size, size), (size - step, size - step)
+    """(dim_size, sas, overlap, n_rows, n_cols); ``size`` and ``step`` are ints (square) or (y, x) pairs."""
+    sas, steps = win._as2(size), win._as2(step)
+    overlap = (sas[0] - steps[0], sas[1] - steps[1])
     return ((h, w), sas, overlap, *win.get_field_shape((h, w), sas, overlap))
 
 
@@ -238,4 +240,67 @@ def test_ensemble_kernel_code_matches_plain(kernels, size, step, dtype, threshol
     assert (out_p[1] > 0).any()
     if zero_band or threshold:
         assert (out_p[1] == 0).any()
+    _compare_ensemble(out_k, out_p, 0.1)
+
+
+@pytest.mark.parametrize(
+    "sas,pair_stride,dtype,zero_band",
+    [
+        ((16, 40), 1, np.float32, False),
+        ((40, 16), 2, np.uint8, True),
+        ((72, 24), 2, np.float32, False),
+        ((24, 80), 1, np.uint8, True),
+        ((75, 66), 1, np.float32, False),
+    ],
+    ids=["16x40", "40x16-stride2-zero", "72x24-packed-stride2", "24x80-packed-zero", "75x66-packed-odd"],
+)
+def test_pairs_kernel_code_non_square(kernels, sas, pair_stride, dtype, zero_band):
+    """Non-square windows in both layouts (small: both sides <= 64; packed: a
+    side over 64) on four to six windows of two pairs, at 50 % overlap."""
+    wy, wx = sas
+    rng = np.random.default_rng(wy * 1000 + wx)
+    h, w = wy + wy // 2 + 3, 2 * wx + 1
+    stack = _frames(rng, 2 + pair_stride, h, w, dtype=dtype)
+    if zero_band:
+        stack[:, wy // 2 :, :] = 0  # the second row of windows has zero variance
+    frames = torch.as_tensor(stack)
+    steps = (wy // 2, wx // 2)
+    args = _grid(h, w, sas, steps)
+    assert args[3] * args[4] in (4, 6)
+    out_k = kernels._launch(frames, sas, steps, *args[3:], None, pair_stride)
+    out_p = kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
+    assert out_p[0].shape[0] == 2 and torch.isnan(out_p[0]).any() == zero_band
+    _compare(out_k, out_p, _gap(frames, *args[:3], pair_stride, out_p[0].shape))
+
+
+@pytest.mark.parametrize(
+    "sas,steps,dtype,threshold,zero_band",
+    [
+        ((16, 32), (8, 12), np.float32, None, False),
+        ((80, 80), (40, 40), np.uint8, None, False),
+        ((72, 96), (36, 48), np.float32, None, True),
+        ((66, 24), (33, 12), np.uint8, 0.5, False),
+    ],
+    ids=["16x32-small", "80-packed", "72x96-packed-zero", "66x24-packed-threshold"],
+)
+def test_ensemble_kernel_code_large_and_non_square(kernels, sas, steps, dtype, threshold, zero_band):
+    """The ensemble kernel's packed layout (a side over 64: pairs one at a
+    time, the accumulator in device memory) and non-square windows in the
+    small layout, five frames."""
+    wy, wx = sas
+    rng = np.random.default_rng(wy + wx)
+    h, w = wy + 2 * steps[0] + 5, wx + 2 * steps[1] + 3
+    stack = _frames(rng, 5, h, w, dtype=dtype)
+    if zero_band:
+        stack[:, 2 * steps[0] :, :] = 0  # the last row of windows has zero variance
+    frames = torch.as_tensor(_dark(stack) if threshold else stack)
+    args = _grid(h, w, sas, steps)
+    assert args[3] * args[4] == 9
+    out_k = kernels._launch_ensemble(frames, sas, steps, *args[3:], 0.1, 1.5, threshold)
+    out_p = kernels.piv_ensemble_fused_plain(frames, *args, 0.1, 1.5, threshold)
+    assert (out_p[1] > 0).any()
+    if zero_band:
+        assert (out_p[1] == 0).any()
+    if threshold:
+        assert (out_p[1] < 4).any()  # the band dark in frame 1 takes out two pairs
     _compare_ensemble(out_k, out_p, 0.1)

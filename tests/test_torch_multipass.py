@@ -265,6 +265,36 @@ def test_get_piv_multipass_chain_matches_jax(projected, monkeypatch):
     assert res_t["Q"] > 0
 
 
+def test_get_piv_multipass_256px_pass_matches_jax(projected, monkeypatch):
+    """get_piv(window_size=64, passes=3): passes of 256, 128 and 64 px. The
+    256 px pass is over the kernels' 128 px, so it goes by plan to the plain
+    tensor ops (route "torch_ops"), as JAX's kernel route sends it to its XLA
+    pipeline; the others take the kernel's plain version. Held to JAX's
+    cascade on the same projected stack within the chain test's tolerances."""
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    _, _, proj_t, proj_j = projected
+    routes = []
+    routed = piv_kernels.piv_pairs_routed
+
+    def recording(pairs, dim_size, sas, *args, **kwargs):
+        out = routed(pairs, dim_size, sas, *args, **kwargs)
+        routes.append((tuple(sas), piv_kernels.KERNEL_ROUTE["piv_pairs_fused"]))
+        return out
+
+    monkeypatch.setattr(piv_kernels, "piv_pairs_routed", recording)
+    kw = dict(window_size=64, overlap=(32, 32), passes=3)
+    piv_t = proj_t.frames.get_piv(**kw)
+    assert routes == [((256, 256), "torch_ops"), ((128, 128), "plain_cpu"), ((64, 64), "plain_cpu")]
+    piv_j = proj_j.frames.get_piv(**kw)
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        got, want = piv_t[name].values, np.asarray(piv_j[name].values)
+        assert got.shape == want.shape == (N_FRAMES - 1,) + got.shape[1:]
+        assert (np.isnan(got) == np.isnan(want)).all(), name
+        tol = 2e-3 if name.startswith("v_") else 1e-3
+        np.testing.assert_allclose(got, want, atol=tol, rtol=0 if name != "s2n" else 1e-3, equal_nan=True, err_msg=name)
+    assert np.isfinite(piv_t["v_x"].values).mean() > 0.9
+
+
 def test_get_piv_multipass_chunked_equals_whole(projected):
     """5-frame chunks (one-frame overlap) give the one-chunk result exactly:
     every pass is per pair."""

@@ -179,14 +179,67 @@ def test_subpixel_ties_break_on_first_index():
 
 
 def test_kernel_wrapper_rejects_unsupported_geometry():
-    """Geometries the CUDA kernel does not take raise before any launch."""
+    """Geometries the CUDA kernel does not take (a side under 8 or over 128 px) raise before any launch."""
     frames = torch.zeros((3, 64, 64))
-    for sas in ((16, 32), (130, 130), (6, 6)):
-        with pytest.raises(ValueError, match="square windows of 8-128 px"):
+    for sas in ((6, 6), (130, 130), (136, 64)):
+        assert not piv_kernels.kernel_takes(sas)
+        with pytest.raises(ValueError, match="sides of 8-128 px.*ROADMAP.md, queue B"):
             piv_kernels._launch(frames, sas, (sas[0] // 2, sas[1] // 2), 3, 3, None, 1)
+    assert all(piv_kernels.kernel_takes(sas) for sas in ((8, 8), (128, 128), (64, 128), (8, 128), (75, 66)))
     with pytest.raises(ValueError, match="does not match"):
         piv_kernels.piv_pairs_fused(frames, (64, 64), (16, 16), (8, 8), 5, 7)
     with pytest.raises(ValueError, match="pair_stride"):
         piv_kernels.piv_pairs_fused(frames, (64, 64), (16, 16), (8, 8), 7, 7, pair_stride=3)
     with pytest.raises(ValueError, match="dim_size"):  # windows would read past the frames
         piv_kernels.piv_pairs_fused(frames, (96, 64), (16, 16), (8, 8), 11, 7)
+
+
+@pytest.mark.parametrize(
+    "sas,dims,zero_band",
+    [((64, 128), (192, 416), False), ((32, 64), (112, 288), True), ((128, 64), (320, 224), False)],
+    ids=["64x128", "32x64-zero", "128x64"],
+)
+def test_plain_non_square_matches_xla(rng, sas, dims, zero_band):
+    """The kernel's plain version at non-square windows (50 % overlap) against
+    JAX's XLA pipeline ``ops/piv.piv_pairs``, which is what JAX computes for
+    them correctly (its Pallas route raises, see below). The two documented
+    Pallas-vs-XLA differences are masked: a zero-variance window gives NaN u/v
+    and s2n 0 in the port where XLA gives a placeholder and NaN s2n (ROADMAP
+    C). Elsewhere the gap-conditioned contract bounds of
+    ``_assert_contract_close`` hold."""
+    imgs = _stack(rng, dims[0], dims[1], [(0, 0), (2.0, -1.0), (3.5, 1.25)]) * 200.0
+    if zero_band:
+        imgs[:, dims[0] // 2 :, :] = 0.0
+    overlap = (sas[0] // 2, sas[1] // 2)
+    n_rows, n_cols = jwin.get_field_shape(dims, sas, overlap)
+    assert twin.get_field_shape(dims, sas, overlap) == (n_rows, n_cols) and n_rows * n_cols >= 9
+    want = [np.array(x) for x in jpiv.piv_pairs(imgs, dims, sas, overlap, n_rows, n_cols, None, "fft")]
+    got = [
+        x.numpy()
+        for x in piv_kernels.piv_pairs_fused(torch.as_tensor(imgs), dims, sas, overlap, n_rows, n_cols)
+    ]
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+    dead = np.isnan(got[0])
+    assert dead.any() == zero_band
+    if zero_band:
+        assert np.isnan(got[1][dead]).all() and (got[2][dead] == 0).all() and (got[3][dead] == 0).all()
+        assert (want[2][dead] == 0).all() and np.isnan(want[3][dead]).all()
+        for g, w in zip(got, want):
+            g[dead] = w[dead] = 0.0
+    _assert_contract_close(got, want, _gap(imgs, dims, sas, overlap, n_rows, n_cols))
+
+
+def test_jax_pallas_non_square_fault():
+    """Pins a fault of the JAX package: on the geometry its Pallas route takes
+    for non-square windows (both sides >= 64 px, 8-aligned), ``_packed_mats``
+    ``np.stack``s the wx x wx and wy x wy DFT matrices and raises, and
+    ``_recoverable`` lets that ValueError through (ROADMAP C). The port holds
+    its non-square kernels against JAX's XLA pipeline instead. When JAX is
+    fixed, this test fails and says so."""
+    dims, sas, overlap = (128, 256), (64, 128), (32, 64)
+    n_rows, n_cols = jwin.get_field_shape(dims, sas, overlap)
+    imgs = np.random.default_rng(0).uniform(0, 200, (3,) + dims).astype(np.float32)
+    assert piv_pallas._fused_geometry_ok(64, 128, 32, 64)
+    with pytest.raises(ValueError, match="same shape") as err:
+        piv_pallas.piv_pairs_fused(imgs, dims, sas, overlap, n_rows, n_cols, interpret=True)
+    assert "_packed_mats" in {entry.name for entry in err.traceback}

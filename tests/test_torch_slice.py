@@ -65,15 +65,18 @@ def test_slice_matches_jax_and_truth(projected, monkeypatch, window_size):
 
 
 def test_profile_slice_covers_every_stage():
-    """The profiled slices report each stage once; on the CPU no device work shows."""
+    """The profiled slices (per-pair, multipass, non-square, ensemble, wide
+    ensemble) report each stage once; on the CPU no device work shows."""
     camera = {"f": 1000.0, "gcp_px": 60, "aoi_px": 100}
-    stages = chip_smoke.profile_slice("cpu", (H_IMG, W_IMG, 8), (H_IMG, W_IMG, 8), ens_camera=camera)
+    # the ensemble slices at 600x800: the wide ensemble's 128 px windows need a
+    # few rows of them along the transect to hold Q to the truth
+    stages = chip_smoke.profile_slice("cpu", (H_IMG, W_IMG, 8), (600, 800, 8), ens_camera=camera)
     chain = ("get_piv", "mask", "transect_q_flow")
     want = {"normalize", "project"} | {
         f"{name}[{ws + ws % 2}px]" for ws in chip_smoke.SLICE_WINDOWS for name in chain
     } | {f"{name}[{ws + ws % 2}px x{passes}]" for ws, passes in chip_smoke.MULTIPASS for name in chain} | {
         f"{name}[ens]" for name in ("normalize", "project", "get_piv", "mask", "transect_q_flow")
-    }
+    } | {f"{name}[64x128px]" for name in chain} | {f"{name}[ens 128px]" for name in chain}
     assert set(stages) == want
     for row in stages.values():
         assert row["wall_ms"] > 0 and row["device_ms"] == row["copy_ms"] == 0.0 and row["idle"] == 1.0
@@ -127,3 +130,38 @@ def test_mask_transect_discharge_identical(projected, monkeypatch):
         np.testing.assert_array_equal(m_t[name].values, np.asarray(m_j[name].values))
     for name in ("v_eff", "q", "river_flow"):
         np.testing.assert_array_equal(q_t[name].values, np.asarray(q_j[name].values))
+
+
+def test_non_square_chain_matches_jax(projected, monkeypatch):
+    """chip_smoke's non-square path (get_piv with 64x128 px windows at overlap
+    (32, 64) -> mask -> transect -> Q) against the JAX package, whose XLA
+    engine computes these windows (its Pallas route raises on them, see
+    tests/test_torch_piv.py). JAX's own get_q then fails to reload the
+    camera config its get_piv wrote with a (y, x) window (ROADMAP C), so its
+    chain continues from its PIV with the recipe's camera config. v_x / v_y
+    within 2e-3 m/s, corr / s2n within 1e-3, Q within 1 %, and the port's
+    medians within the smoke run's 0.02 m/s of the truth."""
+    monkeypatch.setenv("PYORC_TPU_ENGINE", "xla")
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    cc_t, cc_j, proj_t, proj_j = projected
+    res_t, _, piv_t = chip_smoke.non_square_phase(proj_t, H_IMG, W_IMG)
+    assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+    piv_j = proj_j.frames.get_piv(window_size=chip_smoke.NS_WINDOW, overlap=chip_smoke.NS_OVERLAP)
+    assert piv_t["v_x"].values.shape == (N_FRAMES - 1, 7, 5)
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        got, want = piv_t[name].values, np.asarray(piv_j[name].values)
+        assert got.shape == want.shape
+        assert (np.isnan(got) == np.isnan(want)).all(), name
+        tol = 2e-3 if name.startswith("v_") else 1e-3
+        np.testing.assert_allclose(got, want, atol=tol, rtol=0 if name != "s2n" else 1e-3, err_msg=name)
+    with pytest.raises(AssertionError, match="window_size"):
+        piv_j.velocimetry.get_transect(*chip_smoke.transect_points(cc_j)).transect.get_q(fill_method="interpolate")
+    piv_j.attrs["camera_config"] = cc_j.to_json()
+    mask = piv_j.velocimetry.mask
+    masked = piv_j.velocimetry.mask([mask.minmax(), mask.corr(), mask.count()])
+    q_j = masked.velocimetry.get_transect(*chip_smoke.transect_points(cc_j)).transect.get_q(fill_method="interpolate")
+    q_j.transect.get_river_flow()
+    q_median = float(q_j["river_flow"].sel(quantile=0.5).values)
+    assert abs(res_t["Q"] - q_median) < 0.01 * abs(q_median)
+    for name in ("v_x", "v_y"):
+        assert abs(res_t[name] - res_t[name + "_true"]) < chip_smoke.NS_VEL_TOL
