@@ -7,15 +7,18 @@
    the CUDA kernels from ``pyorc_tpu_torch/csrc/`` into one library under
    ``build/``.
 2. Per-pair kernel phase: particle frames of 1088x1920, 9 frames with a
-   known sub-pixel shift, at 16, 26, 64, 104 and 128 px windows and the
-   non-square 64x128, 128x64 and 32x64 px (8 consecutive pairs, 50 %
+   known sub-pixel shift, at 16, 26, 52, 64, 96, 104 and 128 px windows and
+   the non-square 64x128, 128x64 and 32x64 px (8 consecutive pairs, 50 %
    overlap), and at 32 and 128 px with ``pair_stride=2`` (4 explicit pairs,
    as multipass PIV gives them). The kernel is held against its plain
    PyTorch version on the card and both are timed (CUDA events, median of 10
-   runs after warm-up).
+   runs after warm-up). At 64 and 128 px the card's SM clock and power draw
+   are read while the kernel runs back to back.
 3. Ensemble kernel phase: the same texture, 65 frames (64 pairs), at 16, 26,
-   32, 64, 104 and 128 px at 50 % overlap, 32 px at step 12 and 64x128 px at
-   step (32, 64); the ensemble kernel against its plain version, both timed.
+   32, 64, 104 and 128 px at 50 % overlap, 32 px at step 12, 64x128 px at
+   step (32, 64), and 64 px at 64 frames (an odd number of pairs); the
+   ensemble kernel against its plain version, both timed, the clock read as
+   in step 2.
 4. Per-pair slice, at the geul recipe's scale: a 1920x1080, 126-frame
    in-memory stack advected (2.3, -1.4) px/frame through normalize ->
    project -> get_piv (16 and 26 px) -> mask -> get_transect -> get_q ->
@@ -24,7 +27,8 @@
 5. Per-pair main-path check: the projected stack the slice gave the kernel
    is run through the kernel and its plain version again, at the slice's
    window grids; the kernel's output must also be the velocity field the
-   slice produced. Both are timed at 16 px.
+   slice produced. Both are timed, and so is the kernel on the same pairs
+   given explicitly (``pair_stride=2``: one pair per block, no shared frames).
 6. Multipass slice: the same projected stack through get_piv(passes=3) at
    window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
@@ -46,16 +50,21 @@
    kernel's launches in this run are counted.
 10. Ensemble main-path check: the projected 4K stack through the ensemble
    kernel and its plain version again, held to each other, and the slice's
-   velocities held to the kernel's mean-plane displacements; both timed.
+   velocities held to the kernel's mean-plane displacements; both timed,
+   and beside them ``torch.fft.rfft2`` + ``irfft2`` alone over those windows.
 11. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
    ensemble_corr=True) -> masks -> get_transect -> get_q -> get_river_flow
-   (the kernel's packed layout, Pallas B5's geometry), held to the truth as
+   (Pallas B5's geometry, the kernel's largest plane), held to the truth as
    step 9, then the main-path check of step 10 at 128 px.
 12. Prints one JSON line about the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each slice runs with every launch count at 0 and must launch its kernel;
 every call of the engine's entry point in it must take the CUDA kernel.
+
+    python3 chip_smoke.py --kernels-only
+
+stops after steps 1-3 (to compare two trees' kernels on one card).
 
     python3 chip_smoke.py --profile
 
@@ -88,8 +97,9 @@ FPS = 6.25
 RES = 0.01  # m/px at the water plane
 SHIFT = (2.3, -1.4)  # image-space displacement per frame (x, y) in px
 H_A = 0.0
-KERNEL_SIZES = (16, 26, 64, 104, 128, (64, 128), (128, 64), (32, 64))
+KERNEL_SIZES = (16, 26, 52, 64, 96, 104, 128, (64, 128), (128, 64), (32, 64))
 STRIDE2_SIZES = (32, 128)  # pair_stride=2 runs of the kernel phase
+CLOCK_SIZES = (64, 128)  # kernel-phase windows at which the SM clock and power draw are read under load
 SLICE_WINDOWS = (15, 25)  # recipe window sizes; rounded to 16 and 26 px, run at 50 % overlap
 # multipass PIV on the per-pair slice's stack: (window_size, passes), at 50 % overlap
 MULTIPASS = ((32, 3), (25, 3))
@@ -107,13 +117,17 @@ ENS_SHAPE = (2160, 3840)
 ENS_FPS = 30.0
 ENS_FRAMES = 300
 ENS_WINDOW = 64
-ENS_WIDE_WINDOW = 128  # the second ensemble path on the 4K stack: the packed layout
+ENS_WIDE_WINDOW = 128  # the second ensemble path on the 4K stack: the largest window the kernels take
 ENS_CAMERA = {"f": 6000.0, "gcp_px": 200, "aoi_px": 300}
 ENS_VEL_RTOL = 0.05  # median v_x, v_y against the analytic values, relative
-# (window, step) of the ensemble kernel phase: 50 % overlap, 32 px at step 12
-# (a step that does not divide the window) and the packed layout's 104 / 128 px
-# and 64x128: Pallas B5's geometry
-ENS_KERNEL_CASES = ((16, 8), (26, 13), (32, 16), (64, 32), (32, 12), (104, 52), (128, 64), ((64, 128), (32, 64)))
+# (window, step, frames) of the ensemble kernel phase: 50 % overlap, 32 px at
+# step 12 (a step that does not divide the window), 104 / 128 px and 64x128
+# (Pallas B5's geometry) at 64 pairs, and 64 px at 63 pairs (the kernel takes
+# two frames a step: an odd count ends on half a step)
+ENS_KERNEL_CASES = (
+    (16, 8, 65), (26, 13, 65), (32, 16, 65), (64, 32, 65), (32, 12, 65), (104, 52, 65), (128, 64, 65),
+    ((64, 128), (32, 64), 65), (64, 32, 64),
+)
 CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
 
 # H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
@@ -383,7 +397,7 @@ def non_square_phase(proj, h, w):
 
 
 def wide_ensemble_phase(proj, h, w, camera=ENS_CAMERA):
-    """Drive ensemble PIV at ENS_WIDE_WINDOW px (the kernel's packed layout) on
+    """Drive ensemble PIV at ENS_WIDE_WINDOW px (the largest window the kernel takes) on
     the ensemble slice's projected stack ``proj`` (camera frames h x w):
     get_piv -> spatial masks -> get_transect -> get_q -> get_river_flow, held
     to the truth as the ensemble slice is. Returns (results, stage times,
@@ -648,6 +662,8 @@ def kernel_phase(device):
         label = f"kernel {_fmt(size)} px" + ("" if stride == 1 else f", pair_stride {stride}")
         _, row = compare_kernel(frames, args, label, stride)
         row["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args, pair_stride=stride))
+        if size in CLOCK_SIZES and stride == 1:
+            clocks_under_load(lambda: piv_kernels.piv_pairs_fused(frames, *args), row["ms"], label)
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=stride))
         row["bound_ms"], row["bound_by"] = pairs_bound(frames, args, stride)
         out[size, stride] = row
@@ -662,19 +678,68 @@ def ensemble_kernel_phase(device):
     from pyorc_tpu_torch.ops import piv_kernels
 
     h, w, n_frames = 1088, 1920, 65
-    frames = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
+    stack = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
     out = {}
-    for size, step in ENS_KERNEL_CASES:
+    for size, step, n in ENS_KERNEL_CASES:
+        frames = stack[:n]
         args = _grid((h, w), size, step)
         half = args[2] == tuple(s // 2 for s in args[1])  # the overlap is half the window
-        label = f"ensemble kernel {_fmt(size)} px" + ("" if half else f", step {_fmt(step)}")
+        label = (f"ensemble kernel {_fmt(size)} px" + ("" if half else f", step {_fmt(step)}")
+                 + ("" if n == n_frames else f", {n - 1} pairs"))
         _, row = compare_ensemble(frames, args, label)
         row["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args))
+        if size in CLOCK_SIZES and n == n_frames:
+            clocks_under_load(lambda: piv_kernels.piv_ensemble_fused(frames, *args), row["ms"], label)
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
         row["bound_ms"], row["bound_by"] = ensemble_bound(frames, args)
-        out[size, step] = row
+        out[size, step, n] = row
         print(f"{label}: {json.dumps(row)}", flush=True)
     return out
+
+
+def clocks_under_load(fn, ms, label, busy_ms=400.0):
+    """Print the card's SM clock and power draw while ``fn`` (one launch of ``ms``) runs back to back.
+
+    Enough launches for ``busy_ms`` are queued without waiting; ``nvidia-smi``
+    reads the card while they run."""
+    import torch
+
+    for _ in range(max(2, int(busy_ms / max(ms, 1e-3)))):
+        fn()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    print(f"SM clock, power draw under {label}: {smi}", flush=True)
+
+
+def fft_alone_ms(proj, device, window=ENS_WINDOW, chunk=10):
+    """Time [ms] of ``torch.fft.rfft2`` of every window of every frame of the
+    projected stack plus ``irfft2`` of as many planes as there are pairs, and
+    nothing else of the contract (no statistics, product, gate or sum): the
+    library's transforms alone, for context beside the ensemble kernel."""
+    import torch
+
+    from pyorc_tpu_torch.ops import piv as piv_ops
+    from pyorc_tpu_torch.ops import windows as win
+
+    frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
+    dims, sas, overlap, _, _ = _grid(frames.shape[1:], window)
+    row0, col0 = win.get_window_starts(dims, sas, overlap)
+    total = 0.0
+    for f0 in range(0, frames.shape[0], chunk):
+        wins = piv_ops.extract_windows(frames[f0 : f0 + chunk].float(), row0, col0, *sas).contiguous()
+        n_planes = wins.shape[0] - (1 if f0 + chunk >= frames.shape[0] else 0)  # one plane per pair
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        spec = torch.fft.rfft2(wins)
+        torch.fft.irfft2(spec[:n_planes], s=sas)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        del wins, spec
+    return total
 
 
 def main_path_check(proj, pivs, device, reps=10):
@@ -682,7 +747,8 @@ def main_path_check(proj, pivs, device, reps=10):
 
     Also checks that the slice's (unmasked) velocities are the kernel's
     displacements scaled by the resolution and the frame interval, and
-    times kernel and plain version on that stack (median of ``reps``).
+    times kernel and plain version on that stack (median of ``reps``), and
+    the kernel without its runs of consecutive pairs (``one_pair_per_block_ms``).
     """
     import torch
 
@@ -701,6 +767,13 @@ def main_path_check(proj, pivs, device, reps=10):
         if device != "cpu":
             out[w_px]["ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused(frames, *args), reps)
             out[w_px]["plain_ms"] = _median_ms(lambda: _plain_pairs(frames, args), reps)
+            # the same pairs given explicitly (frames 0 1 1 2 2 3 ... at pair_stride=2): one pair per
+            # block and every frame transformed twice, where consecutive frames let a block walk a run
+            explicit = frames.repeat_interleave(2, dim=0)[1:-1]
+            out[w_px]["one_pair_per_block_ms"] = _median_ms(
+                lambda: piv_kernels.piv_pairs_fused(explicit, *args, pair_stride=2), reps
+            )
+            del explicit
         out[w_px]["bound_ms"], out[w_px]["bound_by"] = pairs_bound(frames, args)
         print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out[w_px])}", flush=True)
     return out
@@ -800,6 +873,7 @@ def ensemble_main_path_check(proj, piv, device, window=ENS_WINDOW, reps=3):
             raise AssertionError(f"{label} {name}: slice vs kernel mean-plane velocity differ by {d} m/s")
     if device != "cpu":
         out["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args), reps)
+        clocks_under_load(lambda: piv_kernels.piv_ensemble_fused(frames, *args), out["ms"], label)
         out["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args), reps)
     out["bound_ms"], out["bound_by"] = ensemble_bound(frames, args)
     out["low_count_share"] = float(low.mean())
@@ -925,6 +999,8 @@ def main(argv) -> int:
 
     kern = kernel_phase(device)
     ens_kern = ensemble_kernel_phase(device)
+    if "--kernels-only" in argv:
+        return 0
 
     t0 = time.perf_counter()
     (results, times, proj, pivs), pairs_launches = _drive(
@@ -973,6 +1049,8 @@ def main(argv) -> int:
     print("ensemble slice results " + json.dumps(ens_results))
     ens_main = ensemble_main_path_check(ens_proj, ens_piv, device)
     del ens_piv
+    print(f"torch.fft.rfft2 + irfft2 alone over the {ENS_WINDOW} px windows of that stack "
+          f"(context, not the kernel's contract): {fft_alone_ms(ens_proj, device):.3f} ms", flush=True)
 
     t0 = time.perf_counter()
     (wide_results, wide_times, wide_piv), wide_launches = _drive(

@@ -13,30 +13,30 @@
 // `_finish_corr` (:218-283) and the NaN stores (:445-446, :844-845) compute,
 // for wy x wx windows with sides of 8-128 px on any uniform step.
 //
-// Design, both sides <= 64 px (`piv_pairs_kernel`): one thread block per
-// (pair, window). Both windows live in shared memory; the circular
-// cross-correlation is a separable DFT done as small fp32 matrix products on
-// the CUDA cores against cos/sin tables made in float64 on the host (no TF32,
-// no tensor cores: they miss the 0.01 m/s velocity bar). Per window pair that
-// is wy wx (6 wx + 12 wy) fp32 FMAs (18 w^3 square) over 6 wy wx floats of
-// planes plus the tables of both axes (one set when square: 128 KB at 64 px,
-// hence dynamic shared memory above 48 KB); each FMA reads two shared-memory
-// operands, so the kernel is bound by shared-memory bandwidth, not by HBM
-// (each frame byte is read by ~4 overlapping windows and twice as a pair
-// member). Tables are read transposed where that keeps a warp's accesses on
-// distinct banks.
-//
-// Design, a side over 64 px (`piv_pairs_large_kernel`): 6 wy wx floats would
-// be 384 KB at 128 px against a block's 227 KB, so both demeaned windows are
-// packed into one complex plane z = a + i b and every DFT stage runs in place,
-// a strip of rows or columns at a time through a small staging buffer, with
-// outputs k and n - k of a line computed together and the spectra separated
-// by Hermitian symmetry (piv_common.cuh: LargeLayout, dft_strips,
-// packed_corr). Per window pair that is wy wx (3 wx + 4 wy) FMAs (7 w^3
-// square) with about one shared-memory load each, over 224 KB at 128 x 128:
-// one block of 512 threads per SM, bound by shared-memory bandwidth as above.
-// An FFT, register tiling and computing each frame's forward transform once
-// for the two pairs that use it (what B1 does on the TPU) are later work.
+// Design: one layout for every side (piv_common.cuh). Two real windows go
+// into one complex plane z = a + i b in shared memory; one forward 2-D
+// transform, the Hermitian separation of the two spectra and their product,
+// one inverse transform, then the normalization, the first maximum and the
+// sub-pixel fit. Along an axis whose length has an odd part of at most 15 the
+// transform is the in-block FFT (register butterflies, one shared-memory
+// exchange per pass), else the table DFT along that axis.
+//   - pair_stride 1 (consecutive frames): a block walks a run of up to 15
+//     consecutive pairs of its window as the ensemble kernel walks a stack:
+//     frames f and f + 1 in one forward transform, the last frame's half
+//     spectrum cached, the planes of pairs (f - 1, f) and (f, f + 1) in the
+//     real and imaginary parts of one inverse. Each frame is transformed once
+//     (what B1 does on the TPU); 8 transforms for 15 pairs instead of 30. The
+//     grid is windows x runs, the run shortened while that leaves fewer than
+//     two waves of blocks.
+//   - pair_stride 2 (multipass PIV's deformed pairs share no frame): one pair
+//     per block, its plane in the imaginary part of the inverse.
+// Shared memory is the plane (8 wy wx bytes), 2 n twiddles per axis and, for
+// runs, the cached half spectrum: 131 KB (196 KB with the cache) at 128 x 128,
+// 33 KB (50 KB) at 64 x 64. What bounds it is shared-memory traffic (every
+// FFT pass reads and writes the plane once) and, at 16-32 px, the block's
+// chain of barriers, reductions and the serial peak fit; each frame byte is
+// read from device memory about four times (the overlapping windows; eight at
+// pair_stride 2), far below its rate.
 //
 // ops/piv_kernels.py::build_library compiles every csrc/*.cu with nvcc
 // -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC and links them
@@ -63,12 +63,10 @@ __device__ __forceinline__ float gauss3(float lo, float c0, float hi) {
 // plane, where `at(ys, xs)` reads it; every thread gets it.
 template <typename At>
 __device__ __forceinline__ int first_peak(int wy, int wx, float cmax, At at, float* red) {
-    const int N = wy * wx;
-    int first = N;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-        const int ys = i / wx;
-        if (at(ys, i - ys * wx) >= cmax) {
-            first = i;
+    int first = wy * wx;
+    for (PixelWalk p(wx, blockDim.x); p.y < wy; p.next()) {
+        if (at(p.y, p.x) >= cmax) {
+            first = p.y * wx + p.x;
             break;
         }
     }
@@ -99,172 +97,114 @@ __device__ __forceinline__ void store_pair(int wy, int wx, int first, float cmax
     s2n_out[o] = sn;
 }
 
-// Shared memory: six wy*wx work planes, the reduction scratch, and the cos/sin
-// tables (table_floats). Window (r, c) of frame f starts at
-// frames[f][r * step_y][c * step_x]; pair p correlates frames
-// p * pair_stride and p * pair_stride + 1.
-template <typename T>
-__device__ __forceinline__ void pairs_small(
-    const T* __restrict__ frames, int H, int W, int wy, int wx, int step_y, int step_x, int n_cols,
-    int pair_stride, int has_thr, float thr, const float* __restrict__ cos_y,
+// Window (r, c) of frame f starts at frames[f][r * step_y][c * step_x]; pair p
+// correlates frames p * pair_stride and p * pair_stride + 1. Block (win, j)
+// takes pairs j run .. min((j + 1) run, n_pairs) - 1 of window win. run == 1:
+// one pair, z = a + i b, its plane in the imaginary part of the inverse. run >
+// 1 (pair_stride 1 only): the ensemble kernel's walk over frames j run .. , two
+// frames a step, the last spectrum cached in S.extra, two pairs' planes per
+// inverse. WY > 0: L is the constant layout of WY x WX windows.
+template <typename T, int WY, int WX>
+__device__ __forceinline__ void pairs_block(
+    const T* __restrict__ frames, int H, int W, const Layout& L, int step_y, int step_x, int n_cols,
+    int n_pairs, int pair_stride, int run, int has_thr, float thr, const float* __restrict__ cos_y,
     const float* __restrict__ sin_y, const float* __restrict__ cos_x,
     const float* __restrict__ sin_x, float* __restrict__ u_out, float* __restrict__ v_out,
     float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
     extern __shared__ float smem[];
-    const int N = wy * wx;
-    float* b0 = smem;
-    float* b1 = b0 + N;
-    float* b2 = b1 + N;
-    float* b3 = b2 + N;
-    float* b4 = b3 + N;
-    float* b5 = b4 + N;
-    float* red = b5 + N;  // 4 * kMaxWarps floats
-    float* Cx = red + 4 * kMaxWarps;
-    float* Sx = Cx + wx * wx;
-    float* Cy = wy == wx ? Cx : Sx + wx * wx;
-    float* Sy = wy == wx ? Sx : Cy + wy * wy;
+    const Smem S(smem, L);
+    const int wy = L.wy, wx = L.wx, ld = L.ld;
 
-    const int win = blockIdx.x, pair = blockIdx.y;
-    const int n_win = gridDim.x;
+    const int win = blockIdx.x, n_win = gridDim.x;
     const int r = win / n_cols, c = win - r * n_cols;
     const size_t frame_px = static_cast<size_t>(H) * W;
-    const T* fa = frames + static_cast<size_t>(pair) * pair_stride * frame_px +
-                  static_cast<size_t>(r) * step_y * W + static_cast<size_t>(c) * step_x;
-    const T* fb = fa + frame_px;
-    const int tid = threadIdx.x, nt = blockDim.x;
+    const T* src = frames + static_cast<size_t>(r) * step_y * W + static_cast<size_t>(c) * step_x;
 
-    // load both windows and the tables; sums and non-zero counts
-    load_tables(cos_y, sin_y, cos_x, sin_x, wy, wx, Cy, Sy, Cx, Sx);
-    const Tables tab{Cy, Sy, Cx, Sx};
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = tid; i < N; i += nt) {
-        const int y = i / wx, x = i - y * wx;
-        const float va = load_px(fa + static_cast<size_t>(y) * W + x);
-        const float vb = load_px(fb + static_cast<size_t>(y) * W + x);
-        b0[i] = va;
-        b1[i] = vb;
-        acc[0] += va;
-        acc[1] += vb;
-        acc[2] += va > 0.f ? 1.f : 0.f;
-        acc[3] += vb > 0.f ? 1.f : 0.f;
+    load_twiddles(cos_y, sin_y, cos_x, sin_x, smem, S, L);  // ordered by load_windows' first reduction
+
+    // finishes the raw plane of pair `pair` (windows a, b), fits its peak and stores the pair
+    const auto finish_store = [&](float* plane, int pair, const WinStat& a, const WinStat& b) {
+        const bool valid = a.sd > 1e-6f && b.sd > 1e-6f;
+        float cmax, s2n;
+        finish_plane(plane, L, S.red, a, b, valid, cmax, s2n);
+        const auto at = [&](int ys, int xs) { return plane[unshift(ys, wy) * ld + unshift(xs, wx)]; };
+        const int first = first_peak(wy, wx, cmax, at, S.red);
+        store_pair(wy, wx, first, cmax, s2n, valid, has_thr && fminf(a.signal, b.signal) < thr, at,
+                   static_cast<size_t>(pair) * n_win + win, u_out, v_out, cmax_out, s2n_out);
+    };
+
+    // frames f and f + 1 a step; the run's last frame is p1 (run == 1: one step, frames p0 stride and the next)
+    const int p0 = blockIdx.y * run, p1 = min(p0 + run, n_pairs);
+    float* Pr = run > 1 ? S.extra : nullptr;
+    float* Pi = run > 1 ? Pr + wy * (wx / 2 + 1) : nullptr;
+    WinStat prev{0.f, 0.f};
+    for (int f = p0; f <= p1; f += 2) {
+        const T* fa = src + static_cast<size_t>(f) * pair_stride * frame_px;
+        const bool has_b = f + 1 <= p1, use_prev = f > p0;
+        WinStat a, b;
+        load_windows(fa, has_b ? fa + frame_px : nullptr, W, S, L, a, b);
+        transform_2d<WY, WX>(false);
+        cross_spectra(S, L, Pr, Pi, use_prev, has_b);
+        transform_2d<WY, WX>(true);  // the inverse: the planes unshifted in Zr and Zi
+        if (use_prev) finish_store(S.Zr, f - 1, prev, a);
+        if (has_b) finish_store(S.Zi, f, a, b);
+        prev = b;
+        __syncthreads();  // the peaks are read before the next step overwrites the planes
     }
-    block_sum<4>(acc, red);
-    const float nf = static_cast<float>(N);
-    const float mean_a = acc[0] / nf, mean_b = acc[1] / nf;
-    const float signal = fminf(acc[2] / nf, acc[3] / nf);
+}
 
-    // demean; standard deviations
-    float ss[2] = {0.f, 0.f};
-    for (int i = tid; i < N; i += nt) {
-        const float da = b0[i] - mean_a, db = b1[i] - mean_b;
-        b0[i] = da;
-        b1[i] = db;
-        ss[0] += da * da;
-        ss[1] += db * db;
+// WY x WX windows, the layout a constant of the kernel (the sizes of the main
+// paths); WY = 0: any size, the layout `Lp` as the launch made it.
+template <typename T, int WY, int WX>
+__global__ void __launch_bounds__(
+    WY ? make_layout(WY ? WY : 8, WX ? WX : 8, 0).nt : kMaxThreads,
+    WY ? blocks_per_sm(make_layout(WY ? WY : 8, WX ? WX : 8, half_spectrum(WY, WX))) : 1)
+    piv_pairs_kernel(const T* __restrict__ frames, int H, int W, Layout Lp, int step_y, int step_x,
+                     int n_cols, int n_pairs, int pair_stride, int run, int has_thr, float thr,
+                     const float* __restrict__ cos_y, const float* __restrict__ sin_y,
+                     const float* __restrict__ cos_x, const float* __restrict__ sin_x,
+                     float* __restrict__ u_out, float* __restrict__ v_out,
+                     float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
+    if constexpr (WY != 0) {
+        constexpr Layout L = make_layout(WY, WX, 0);
+        pairs_block<T, WY, WX>(frames, H, W, L, step_y, step_x, n_cols, n_pairs, pair_stride, run, has_thr,
+                             thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
+    } else {
+        pairs_block<T, 0, 0>(frames, H, W, Lp, step_y, step_x, n_cols, n_pairs, pair_stride, run, has_thr,
+                              thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
     }
-    block_sum<2>(ss, red);
-    const float sa = sqrtf(ss[0] / nf), sb = sqrtf(ss[1] / nf);
-    const bool valid = sa > 1e-6f && sb > 1e-6f;
-
-    // 1-2. forward DFT of both windows, then the spectral product conj(A) * B
-    // into b0/b1 (the windows are dead after stage 1)
-    const float* const wins[2] = {b0, b1};
-    float* const rows_re[2] = {b2, b4};
-    float* const rows_im[2] = {b3, b5};
-    dft_rows<2>(wins, rows_re, rows_im, tab, wy, wx);
-    const float* const spec_re[2] = {b2, b4};
-    const float* const spec_im[2] = {b3, b5};
-    dft_cols<2>(spec_re, spec_im, tab, wy, wx, [&](int i, const float (&re)[2], const float (&im)[2]) {
-        b0[i] = re[0] * re[1] + im[0] * im[1];
-        b1[i] = re[0] * im[1] - im[0] * re[1];
-    });
-
-    // 3-4. inverse DFT (real part), normalize, clip, fftshift into b4
-    idft_cols(b0, b1, b2, b3, tab, wy, wx);
-    const float denom = corr_denom(nf, sa, sb);
-    float vmax = 0.f, vsum = 0.f;
-    idft_rows_real(b2, b3, tab, wy, wx, [&](int y, int x, float raw) {
-        const float val = valid ? fmaxf(raw / denom, 0.f) : 0.f;
-        b4[shifted_index(y, x, wy, wx)] = val;
-        vmax = fmaxf(vmax, val);
-        vsum += val;
-    });
-    float tot[1] = {vsum};
-    block_sum<1>(tot, red);  // also orders the b4 stores before the reads below
-    const float cmax = block_max(vmax, red);
-    const float s2n = cmax / fmaxf(tot[0] / nf, 1e-10f);
-
-    const auto at = [&](int y, int x) { return b4[y * wx + x]; };
-    const int first = first_peak(wy, wx, cmax, at, red);
-    store_pair(wy, wx, first, cmax, s2n, valid, has_thr && signal < thr, at,
-               static_cast<size_t>(pair) * n_win + win, u_out, v_out, cmax_out, s2n_out);
 }
 
-// kSquare passes one size for both axes, so the compiler folds the planes'
-// row stride and the tables' stride into one (the column stage runs ~10 %
-// fewer instructions than with two), and each instance gets its own
-// register allocation.
-template <typename T, bool kSquare>
-__global__ void piv_pairs_kernel(const T* __restrict__ frames, int H, int W, int wy, int wx,
-                                 int step_y, int step_x, int n_cols, int pair_stride, int has_thr,
-                                 float thr, const float* __restrict__ cos_y,
-                                 const float* __restrict__ sin_y, const float* __restrict__ cos_x,
-                                 const float* __restrict__ sin_x, float* __restrict__ u_out,
-                                 float* __restrict__ v_out, float* __restrict__ cmax_out,
-                                 float* __restrict__ s2n_out) {
-    pairs_small(frames, H, W, kSquare ? wx : wy, wx, step_y, step_x, n_cols, pair_stride, has_thr,
-                thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
-}
-
-// A side over 64 px: the contract of piv_pairs_kernel in the packed layout.
-template <typename T>
-__global__ void __launch_bounds__(kLargeThreads)
-    piv_pairs_large_kernel(const T* __restrict__ frames, int H, int W, int wy, int wx, int step_y,
-                           int step_x, int n_cols, int pair_stride, int has_thr, float thr,
-                           const float* __restrict__ cos_y, const float* __restrict__ sin_y,
-                           const float* __restrict__ cos_x, const float* __restrict__ sin_x,
-                           float* __restrict__ u_out, float* __restrict__ v_out,
-                           float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
-    extern __shared__ float smem[];
-    const LargeLayout L(wy, wx);
-    const LargeSmem M(smem, L);
-
-    const int win = blockIdx.x, pair = blockIdx.y;
-    const int n_win = gridDim.x;
-    const int r = win / n_cols, c = win - r * n_cols;
-    const size_t frame_px = static_cast<size_t>(H) * W;
-    const T* fa = frames + static_cast<size_t>(pair) * pair_stride * frame_px +
-                  static_cast<size_t>(r) * step_y * W + static_cast<size_t>(c) * step_x;
-
-    load_quarter_tables(cos_y, sin_y, cos_x, sin_x, M, L);  // ordered by packed_corr's first reduction
-    const PairCorr pc = packed_corr(fa, fa + frame_px, W, M, L);
-
-    const int ld = L.ld;
-    const auto at = [&](int ys, int xs) { return M.Zr[unshift(ys, wy) * ld + unshift(xs, wx)]; };
-    const int first = first_peak(wy, wx, pc.cmax, at, M.red);
-    store_pair(wy, wx, first, pc.cmax, pc.s2n, pc.valid, has_thr && pc.signal < thr, at,
-               static_cast<size_t>(pair) * n_win + win, u_out, v_out, cmax_out, s2n_out);
-}
+constexpr int kMaxRun = 15;  // pairs a block walks at most (pair_stride 1)
 
 template <typename T>
 cudaError_t launch(const void* frames, int H, int W, int wy, int wx, int step_y, int step_x,
                    int n_rows, int n_cols, int n_pairs, int pair_stride, int has_thr, float thr,
                    const float* cos_y, const float* sin_y, const float* cos_x, const float* sin_x,
                    float* u, float* v, float* cmax, float* s2n, cudaStream_t stream) {
-    const bool small = wy <= kSmallMax && wx <= kSmallMax;
-    const auto kernel = !small       ? piv_pairs_large_kernel<T>
-                        : wy == wx ? piv_pairs_kernel<T, true>
-                                   : piv_pairs_kernel<T, false>;
-    const size_t smem =
-        small ? (6 * static_cast<size_t>(wy) * wx + 4 * kMaxWarps + table_floats(wy, wx)) * sizeof(float)
-              : LargeLayout(wy, wx).bytes();
+    // Consecutive pairs share frames: a block that walks a run of them transforms
+    // each frame once. The longest odd run (an even number of frames: whole
+    // steps) up to kMaxRun that leaves the grid two waves of blocks, if the
+    // cached spectrum fits.
+    Layout L = make_layout(wy, wx, half_spectrum(wy, wx));
+    int run = 1;
+    if (pair_stride == 1 && L.bytes() <= kMaxSmem) {
+        const int wave = kSMs * blocks_per_sm(L);
+        for (int r = 3; r <= kMaxRun && r <= n_pairs; r += 2) {
+            if (n_rows * n_cols * ((n_pairs + r - 1) / r) >= 2 * wave) run = r;
+        }
+    }
+    if (run == 1) L.extra = 0;
+    const size_t smem = L.bytes();
+    auto kernel = piv_pairs_kernel<T, 0, 0>;
+    PIV_FIXED_SIZES(PIV_PICK_KERNEL, piv_pairs_kernel)
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    dim3 grid(n_rows * n_cols, n_pairs);
-    kernel<<<grid, small ? block_threads(wy * wx) : kLargeThreads, smem, stream>>>(
-        static_cast<const T*>(frames), H, W, wy, wx, step_y, step_x, n_cols, pair_stride, has_thr,
-        thr, cos_y, sin_y, cos_x, sin_x, u, v, cmax, s2n);
+    dim3 grid(n_rows * n_cols, (n_pairs + run - 1) / run);
+    kernel<<<grid, L.nt, smem, stream>>>(
+        static_cast<const T*>(frames), H, W, L, step_y, step_x, n_cols, n_pairs, pair_stride, run,
+        has_thr, thr, cos_y, sin_y, cos_x, sin_x, u, v, cmax, s2n);
     return cudaGetLastError();
 }
 

@@ -32,9 +32,30 @@ CUDA. ``piv_pairs_routed`` and ``piv_ensemble_routed`` are what the engine
 and multipass call: by plan, windows the kernels do not take go to the
 XLA-semantics pipeline of :mod:`pyorc_tpu_torch.ops.piv`, as the JAX package
 sends them to its XLA pipeline (``piv_pallas.py:1514-1521``, ``:2079-2083``),
-and the route is recorded as ``"torch_ops"``. The kernels are compiled with
-``nvcc`` for ``sm_90a`` at first use into one library under
-``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
+and the route is recorded as ``"torch_ops"``.
+
+Both kernels share one design (``csrc/piv_common.cuh``): a thread block keeps
+one complex wy x wx plane in shared memory, packs two real windows into it
+(z = a + i b), and transforms it in place with an in-block FFT whose
+butterflies live in registers: per axis, for a length 2^a m with m <= 15, an
+m-point pass and radix-8/4/2 passes, one shared-memory exchange per pass; an
+axis with a larger odd part (17, 66, 75, 127, ...) runs a table DFT along that
+axis instead, so every side of 8-128 px stays on a hand-written kernel. The
+spectra are separated by Hermitian symmetry. The ensemble kernel caches the
+last frame's half spectrum, so each frame is transformed once, gets two
+pairs' correlation planes out of each inverse transform, and keeps its gated
+sum in registers. What bounds them on the H100 is shared-memory bandwidth
+(every FFT pass reads and writes the plane) and, at 16-32 px, a block's fixed
+costs; device memory is read about four to eight times per frame byte and is
+far from its limit. fp32 on the CUDA cores throughout: TF32 and the tensor
+cores miss the 0.01 m/s velocity bar, and the twiddles come from the float64
+tables this module makes (:func:`_dft_tables`), never from fast intrinsics.
+The window sizes of the main paths (16, 26, 32, 52, 64, 104, 128 and 64x128
+px) each get a kernel built for that size; any other size runs one kernel
+that takes its plan as a run-time value.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into one
+library under ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -83,7 +104,7 @@ MAX_WINDOW = 128
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:

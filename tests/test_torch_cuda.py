@@ -51,7 +51,8 @@ def _gap(frames, dims, sas, overlap, pair_stride, shape):
     return piv_ops.top2_gap(frames, dims, sas, overlap, pair_stride).reshape(shape)
 
 
-@pytest.mark.parametrize("size", [8, 16, 26, 32, 64, 75, 104, 128])
+# every class of the transform's plan: powers of two, 2^a * 13, other odd parts up to 15, odd parts over 15
+@pytest.mark.parametrize("size", [8, 12, 13, 14, 16, 17, 22, 24, 26, 32, 40, 48, 52, 64, 66, 72, 75, 96, 104, 120, 127, 128])
 @pytest.mark.parametrize("pair_stride", [1, 2])
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_kernel_matches_plain(cuda, size, pair_stride, dtype):
@@ -86,11 +87,11 @@ def test_kernel_signal_threshold(cuda):
     _compare(out_k, out_p, _gap(frames, (h, w), sas, overlap, 1, out_p[0].shape))
 
 
-@pytest.mark.parametrize("sas", [(64, 128), (128, 64), (32, 64), (16, 40), (72, 24), (75, 66)])
+@pytest.mark.parametrize("sas", [(64, 128), (128, 64), (32, 64), (16, 40), (72, 24), (75, 66), (26, 64), (75, 64), (128, 66)])
 @pytest.mark.parametrize("pair_stride", [1, 2])
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
 def test_kernel_matches_plain_non_square(cuda, sas, pair_stride, dtype):
-    """Non-square windows in both layouts (small: both sides <= 64; packed: a side over 64), 50 % overlap."""
+    """Non-square windows, the FFT and the table DFT mixed per axis among them, 50 % overlap."""
     wy, wx = sas
     rng = np.random.default_rng(wy * 1000 + wx)
     h, w = 4 * wy + 20, 5 * wx + 8
@@ -134,17 +135,20 @@ def _compare_ensemble(out_k, out_p, corr_min):
     "size,step",
     [
         (8, 4), (16, 8), (26, 13), (32, 16), (32, 12), (64, 32), (75, 37), (104, 52), (128, 64),
+        (12, 6), (13, 6), (17, 8), (24, 12), (40, 20), (48, 24), (52, 26), (66, 33), (96, 48), (127, 63), (14, 7), (22, 11), (72, 36), (120, 60),
         ((64, 128), (32, 64)), ((16, 40), (8, 12)), ((128, 72), (40, 36)),
+        ((26, 64), (13, 32)), ((75, 64), (37, 32)), ((128, 66), (64, 33)),
     ],
     ids=lambda v: "x".join(map(str, win._as2(v))),
 )
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
-def test_ensemble_kernel_matches_plain(cuda, size, step, dtype):
-    """Square windows of 8-128 px (the packed layout over 64) and non-square ones, 7 frames."""
+@pytest.mark.parametrize("n_frames", [7, 8], ids=["6-pairs", "7-pairs"])
+def test_ensemble_kernel_matches_plain(cuda, size, step, dtype, n_frames):
+    """Every class of side of 8-128 px, square and not, with an even and an odd number of pairs."""
     sas, steps = win._as2(size), win._as2(step)
     rng = np.random.default_rng(sas[0] + sas[1] + steps[0])
     h, w = 4 * sas[0] + 20, 6 * sas[1] + 8
-    frames = torch.as_tensor(_frames(rng, 7, h, w, zero_band=sas[0] == 32, dtype=dtype), device=cuda)
+    frames = torch.as_tensor(_frames(rng, n_frames, h, w, zero_band=sas[0] == 32, dtype=dtype), device=cuda)
     overlap = (sas[0] - steps[0], sas[1] - steps[1])
     n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
     args = ((h, w), sas, overlap, n_rows, n_cols, 0.1, 1.5)

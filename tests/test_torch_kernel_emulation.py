@@ -45,7 +45,8 @@ CUDA_RUNTIME_SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
 using std::max;
 using std::min;
 
@@ -123,11 +124,12 @@ def emulated_library(tmp_path_factory):
         pytest.skip("needs g++ to compile the CUDA sources as host C++")
     out = tmp_path_factory.mktemp("kernel_emulation")
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_SHIM)
+    shared = ("extern __shared__ float smem[];", "float* smem = emu_smem.data();")
     for header in CSRC.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
+        (out / header.name).write_text(header.read_text().replace(*shared))
     sources = []
     for src in sorted(CSRC.glob("*.cu")):
-        text = src.read_text().replace("extern __shared__ float smem[];", "float* smem = emu_smem.data();")
+        text = src.read_text().replace(*shared)
         # kernel<T><<<grid, block, smem, stream>>>(args); -> emu_launch(grid, block, smem, stream, [&] { kernel<T>(args); });
         text, n = re.subn(
             r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", text, flags=re.S
@@ -137,7 +139,8 @@ def emulated_library(tmp_path_factory):
         sources[-1].write_text(text)
     lib = out / "libpiv_emulated.so"
     proc = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
+        # PIV_SMS=0: no grid is too small for the per-pair kernel to walk runs of pairs
+        [gxx, "-std=c++20", "-O2", "-DPIV_SMS=0", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
          *map(str, sources)],
         capture_output=True, text=True,
     )
@@ -202,7 +205,7 @@ def test_pairs_kernel_code_matches_plain(kernels, size, dtype, threshold, zero_b
     ids=["104-u8", "104-stride2-zero", "128-f32", "128-stride2", "75-odd"],
 )
 def test_pairs_kernel_code_large_windows(kernels, size, pair_stride, dtype, zero_band):
-    """The 65-128 px layout (packed plane, in-place strips) on six windows of two pairs."""
+    """Sides over 64 px (104 = 8 x 13 and 128 on the FFT, 75 on the table DFT) on six windows of two pairs."""
     rng = np.random.default_rng(size + pair_stride)
     h, w = size + size // 2 + 3, 2 * size + 1
     stack = _frames(rng, 2 + pair_stride, h, w, dtype=dtype)
@@ -255,8 +258,9 @@ def test_ensemble_kernel_code_matches_plain(kernels, size, step, dtype, threshol
     ids=["16x40", "40x16-stride2-zero", "72x24-packed-stride2", "24x80-packed-zero", "75x66-packed-odd"],
 )
 def test_pairs_kernel_code_non_square(kernels, sas, pair_stride, dtype, zero_band):
-    """Non-square windows in both layouts (small: both sides <= 64; packed: a
-    side over 64) on four to six windows of two pairs, at 50 % overlap."""
+    """Non-square windows, each axis on its own plan (72 = 8 x 9 and 24, 80, 40,
+    16 on the FFT; 75 and 66 on the table DFT), on four to six windows of two
+    pairs, at 50 % overlap."""
     wy, wx = sas
     rng = np.random.default_rng(wy * 1000 + wx)
     h, w = wy + wy // 2 + 3, 2 * wx + 1
@@ -284,9 +288,8 @@ def test_pairs_kernel_code_non_square(kernels, sas, pair_stride, dtype, zero_ban
     ids=["16x32-small", "80-packed", "72x96-packed-zero", "66x24-packed-threshold"],
 )
 def test_ensemble_kernel_code_large_and_non_square(kernels, sas, steps, dtype, threshold, zero_band):
-    """The ensemble kernel's packed layout (a side over 64: pairs one at a
-    time, the accumulator in device memory) and non-square windows in the
-    small layout, five frames."""
+    """The ensemble kernel at sides over 64 px and non-square windows (66 on
+    the table DFT, the rest on the FFT), five frames: two steps and half a step."""
     wy, wx = sas
     rng = np.random.default_rng(wy + wx)
     h, w = wy + 2 * steps[0] + 5, wx + 2 * steps[1] + 3
@@ -304,3 +307,88 @@ def test_ensemble_kernel_code_large_and_non_square(kernels, sas, steps, dtype, t
     if threshold:
         assert (out_p[1] < 4).any()  # the band dark in frame 1 takes out two pairs
     _compare_ensemble(out_k, out_p, 0.1)
+
+
+# One side of every class of the transform's plan: powers of two, 2^a * 13,
+# other odd parts up to 15 (all on the in-block FFT), odd parts over 15 (the
+# table DFT along that axis), and windows that mix the classes per axis.
+PLAN_SIDES = [
+    8, 16, 32, 64, 128, 26, 52, 104, 12, 13, 24, 40, 48, 96, 17, 66, 75, 127,
+    (64, 128), (26, 64), (75, 64), (128, 66), (13, 17), 14, 22, 72, 120,
+]
+
+
+def _plan_id(size):
+    return "x".join(map(str, win._as2(size)))
+
+
+@pytest.mark.parametrize("size", PLAN_SIDES, ids=_plan_id)
+def test_pairs_kernel_code_plan_classes(kernels, size):
+    """The per-pair kernel at every class of side, four to six windows of two
+    pairs; dtype, pair_stride and a zero-variance row of windows alternate."""
+    wy, wx = win._as2(size)
+    case = PLAN_SIDES.index(size)
+    pair_stride, dtype, zero_band = 1 + case % 2, (np.uint8, np.float32)[case // 2 % 2], case % 3 == 0
+    rng = np.random.default_rng(1000 * wy + wx)
+    h, w = wy + wy // 2 + 3, 2 * wx + 1
+    stack = _frames(rng, 2 + pair_stride, h, w, dtype=dtype)
+    if zero_band:
+        stack[:, wy // 2 :, :] = 0  # the second row of windows has zero variance
+    frames = torch.as_tensor(stack)
+    steps = (wy // 2, wx // 2)
+    args = _grid(h, w, (wy, wx), steps)
+    assert args[3] * args[4] in (4, 6)
+    out_k = kernels._launch(frames, (wy, wx), steps, *args[3:], None, pair_stride)
+    out_p = kernels.piv_pairs_fused_plain(frames, *args, pair_stride=pair_stride)
+    assert out_p[0].shape[0] == 2 and torch.isnan(out_p[0]).any() == zero_band
+    _compare(out_k, out_p, _gap(frames, *args[:3], pair_stride, out_p[0].shape))
+
+
+@pytest.mark.parametrize("n_frames", [4, 5], ids=["3-pairs", "4-pairs"])
+@pytest.mark.parametrize("size", PLAN_SIDES, ids=_plan_id)
+def test_ensemble_kernel_code_plan_classes(kernels, size, n_frames):
+    """The ensemble kernel at every class of side with an odd and an even
+    number of pairs (a step takes two frames: the tail is half a step), four
+    windows; dtype, a signal threshold and a zero-variance row alternate."""
+    wy, wx = win._as2(size)
+    case = PLAN_SIDES.index(size)
+    dtype, threshold = (np.uint8, np.float32)[case % 2], (None, 0.5)[case % 4 == 3]
+    zero_band = case % 3 == 0 and not threshold
+    rng = np.random.default_rng(wy + 1000 * wx + n_frames)
+    steps = (wy // 2, wx // 2)
+    h, w = wy + steps[0] + 2, wx + steps[1] + 3
+    stack = _frames(rng, n_frames, h, w, dtype=dtype)
+    if zero_band:
+        stack[:, steps[0] :, :] = 0  # the second row of windows has zero variance
+    if threshold:
+        stack[:, : 3 * wy // 4, : 3 * wx // 4] = 0  # window (0, 0) falls below the signal threshold
+    frames = torch.as_tensor(stack)
+    args = _grid(h, w, (wy, wx), steps)
+    assert args[3] * args[4] == 4
+    out_k = kernels._launch_ensemble(frames, (wy, wx), steps, *args[3:], 0.1, 1.5, threshold)
+    out_p = kernels.piv_ensemble_fused_plain(frames, *args, 0.1, 1.5, threshold)
+    assert (out_p[1] > 0).any()
+    if zero_band or threshold:
+        assert (out_p[1] < n_frames - 1).any()
+    _compare_ensemble(out_k, out_p, 0.1)
+
+
+@pytest.mark.parametrize("n_frames", [5, 6], ids=["4-pairs", "5-pairs"])
+@pytest.mark.parametrize("size", [16, 26, 64, 24, 75, (26, 64), (66, 16)], ids=_plan_id)
+def test_pairs_kernel_code_runs_of_pairs(kernels, size, n_frames):
+    """Consecutive pairs in runs (a block walks up to 15 pairs of its window,
+    each frame transformed once, two planes per inverse): 4 pairs are a run of
+    3 and one of 1, 5 pairs one run of 5; a zero-variance row of windows."""
+    wy, wx = win._as2(size)
+    rng = np.random.default_rng(wy + 1000 * wx + n_frames)
+    steps = (wy // 2, wx // 2)
+    h, w = wy + steps[0] + 2, wx + steps[1] + 3
+    stack = _frames(rng, n_frames, h, w, dtype=(np.uint8, np.float32)[n_frames % 2])
+    stack[:, steps[0] :, :] = 0  # the second row of windows has zero variance
+    frames = torch.as_tensor(stack)
+    args = _grid(h, w, (wy, wx), steps)
+    assert args[3] * args[4] == 4
+    out_k = kernels._launch(frames, (wy, wx), steps, *args[3:], None, 1)
+    out_p = kernels.piv_pairs_fused_plain(frames, *args)
+    assert out_p[0].shape[0] == n_frames - 1 and torch.isnan(out_p[0]).any()
+    _compare(out_k, out_p, _gap(frames, *args[:3], 1, out_p[0].shape))
