@@ -42,25 +42,43 @@
    windows at overlap (32, 64) -> mask -> get_transect -> get_q ->
    get_river_flow, held to the analytic velocity (0.02 m/s) and discharge;
    then the main-path check of step 5 on its grid.
-9. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
+9. Filters phase: every other frame filter through its ``Frames`` method on
+   the card, on that projected stack (126 x 880 x 1720 uint8): smooth,
+   edge_detect, minmax, time_diff, reduce_rolling (25 frames) and range, and
+   ``project`` of 4 RGB frames of 1920x1080. Each result is held against
+   the same method of the port run on the CPU on the stack's leading frames
+   (range and the RGB projection: all of them), with the tolerance printed:
+   1e-3 for the two blurs (a TF32 convolution would miss by ~0.1), exact for
+   the rest, one count on under 1e-4 of the pixels for reduce_rolling.
+10. STIV phase, the second velocimetry path: the projected stack through
+   smooth(wdw=2) -> get_stiv on 32 lines of 2 m (101 samples, a 2 px step)
+   laid inside the AOI along the analytic flow direction. The median v must
+   lie within 5 % of the analytic speed hypot(v_x, v_y) with every line's
+   coherence above 0.5; along angle + pi it must read the opposite sign; a
+   profile call (window=21) must meet the bar in the median of its interior
+   points. Runs under ``torch.profiler``: each stage's wall and device time
+   are printed.
+11. Ensemble slice, the headline workload of BASELINE.md (a 4K@30 fps video,
    the nadir camera of ``bench_e2e.py``) cut to 10 s: a 3840x2160, 300-frame
    stack through normalize -> project -> get_piv(64 px, ensemble_corr=True)
    -> spatial masks -> get_transect -> get_q -> get_river_flow, checked
    against the analytic velocity (5 %) and discharge (10 %). The ensemble
    kernel's launches in this run are counted.
-10. Ensemble main-path check: the projected 4K stack through the ensemble
+12. Ensemble main-path check: the projected 4K stack through the ensemble
    kernel and its plain version again, held to each other, and the slice's
    velocities held to the kernel's mean-plane displacements; both timed,
    and beside them ``torch.fft.rfft2`` + ``irfft2`` alone over those windows.
-11. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
+13. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
    ensemble_corr=True) -> masks -> get_transect -> get_q -> get_river_flow
    (Pallas B5's geometry, the kernel's largest plane), held to the truth as
-   step 9, then the main-path check of step 10 at 128 px.
-12. Prints one JSON line about the kernels, then the last line
+   step 11, then the main-path check of step 12 at 128 px.
+14. Prints one JSON line about the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Each slice runs with every launch count at 0 and must launch its kernel;
-every call of the engine's entry point in it must take the CUDA kernel.
+Each PIV slice runs with every launch count at 0 and must launch its kernel;
+every call of the engine's entry point in it must take the CUDA kernel. The
+filters and STIV phases run PyTorch ops only, as the JAX package runs these
+stages outside any hand-written kernel.
 
     python3 chip_smoke.py --kernels-only
 
@@ -69,9 +87,8 @@ stops after steps 1-3 (to compare two trees' kernels on one card).
     python3 chip_smoke.py --profile
 
 instead runs the five slices (per-pair, multipass, non-square, ensemble,
-wide ensemble) once under
-``torch.profiler`` and prints, per
-stage, the wall time, the device's busy time (kernels and copies) and its
+wide ensemble) and the filters and STIV phases once under
+``torch.profiler`` and prints, per stage, the wall time, the device's busy time (kernels and copies) and its
 idle share; the raw per-stage numbers go to ``build/profile_slice.json``.
 
 Every phase raises on failure. Without CUDA, or without the package beside
@@ -129,6 +146,27 @@ ENS_KERNEL_CASES = (
     ((64, 128), (32, 64), 65), (64, 32, 64),
 )
 CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
+
+# The filters phase on the per-pair slice's projected stack: a trailing window of
+# 25 frames for reduce_rolling (the reference's default), and the leading frames
+# that the port's CPU run repeats for the comparison (SAMPLE per-frame, ROLL_SAMPLE
+# for reduce_rolling, which needs a full window before its first non-zero frame)
+ROLL_SAMPLES = 25
+FILTER_SAMPLE, ROLL_SAMPLE = 4, 32
+BLUR_TOL = 1e-3  # smooth / edge_detect, card against CPU, on a 0-255 image (TF32 would miss by ~0.1)
+RGB_FRAMES = 4  # RGB frames projected at full width
+
+# The STIV phase on that stack: the particles (sigma 0.8 px, 2.69 px/frame) are
+# blurred by smooth(wdw=2) (a 5-tap binomial, sigma 1 px) and sampled every 2 px
+# along lines laid along the analytic flow direction, so the streaks move 1.35
+# samples a frame; the default two shear refinements take it from there
+STIV_SMOOTH_WDW = 2
+STIV_LENGTH = 2.0  # m: 200 px, 101 samples
+STIV_STEP_PX = 2.0
+STIV_LINES = (4, 8)  # line centres, rows x columns of a grid inside the AOI
+STIV_WINDOW = 21  # samples of the profile call's box
+STIV_RTOL = 0.05  # median |v| against the analytic speed
+STIV_COH_MIN = 0.5
 
 # H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -434,6 +472,147 @@ def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
         raise AssertionError(f"ensemble PIV has {piv['v_x'].values.shape[0]} time steps, not 1")
     results = check_chain(piv, q, cc, ENS_WINDOW, rel_tol=ENS_VEL_RTOL, fps=ENS_FPS)
     return results, times, proj, piv
+
+
+def _on_cpu(device, run):
+    """``run()`` with the port's device set to the CPU, then set back to ``device``."""
+    import pyorc_tpu_torch
+
+    pyorc_tpu_torch.set_device("cpu")
+    try:
+        return run()
+    finally:
+        pyorc_tpu_torch.set_device(device)
+
+
+def rgb_stack(h, w, n_frames, device):
+    """uint8 [n_frames, h, w, 3]: the advected texture, its negative and its half as the three bands."""
+    gray = advected_stack(h, w, n_frames, device)
+    return np.stack([gray, 255 - gray, gray // 2], axis=-1)
+
+
+def filters_phase(proj, h, w, device):
+    """Drive every frame filter through its ``Frames`` method on ``device``, on the per-pair
+    slice's projected stack ``proj`` (camera frames h x w), and ``project`` on an RGB stack of
+    RGB_FRAMES camera frames; hold each result against the same method of the port run on the
+    CPU on the stack's leading frames (``range`` and the RGB projection: on all of them).
+
+    smooth and edge_detect must agree within BLUR_TOL, minmax, time_diff, range and the RGB
+    projection exactly, reduce_rolling (uint8 frames) within one count on fewer than 1e-4 of
+    the pixels. Returns (per-filter results with the tolerance held, stage times).
+    """
+    n = proj.shape[0]
+    roll = min(ROLL_SAMPLES, n)
+    # (method, kwargs, leading frames the CPU repeats, tolerance): time_diff's first k
+    # differences need k + 1 frames
+    cases = [
+        ("smooth", {"wdw": STIV_SMOOTH_WDW}, FILTER_SAMPLE, BLUR_TOL),
+        ("edge_detect", {"wdw_1": 1, "wdw_2": 2}, FILTER_SAMPLE, BLUR_TOL),
+        ("minmax", {"min": 40.0, "max": 200.0}, FILTER_SAMPLE, 0),
+        ("time_diff", {"thres": 2.0, "abs": True}, FILTER_SAMPLE + 1, 0),
+        ("reduce_rolling", {"samples": roll}, min(ROLL_SAMPLE, n), 1),
+        ("range", {}, n, 0),
+    ]
+    times, results = {}, {}
+    for method, kwargs, n_cpu, tol in cases:
+        with _stage(times, method):
+            got = getattr(proj.frames, method)(**kwargs)
+        head = proj[:n_cpu]
+        want = _on_cpu(device, lambda: getattr(head.frames, method)(**kwargs))
+        if method == "time_diff" and (got.shape[0] != n - 1 or got["time"].values[0] != proj["time"].values[1]):
+            raise AssertionError("time_diff: the first time coordinate was not dropped")
+        got_v = got.values if method == "range" else got.values[: want.shape[0]]
+        if got_v.shape != want.values.shape or got_v.dtype != want.values.dtype or got.dims != want.dims:
+            raise AssertionError(f"{method}: {got_v.shape} {got_v.dtype} on the card, {want.shape} {want.dtype} on the CPU")
+        diff = np.abs(got_v.astype(np.float64) - want.values.astype(np.float64))
+        row = {"shape": list(got.shape), "dtype": str(got.values.dtype), "cpu_frames": n_cpu,
+               "max_abs_diff": float(diff.max()), "tolerance": tol}
+        if method == "reduce_rolling":
+            row["differing_share"] = float((diff > 0).mean())
+            if not got.values[roll - 1 :].any() or got.values[: roll - 1].any():
+                raise AssertionError("reduce_rolling: the first samples - 1 frames are not the zero ones")
+            if row["differing_share"] > 1e-4:
+                raise AssertionError(f"reduce_rolling: {row}")
+        if not diff.max() <= tol:
+            raise AssertionError(f"{method} on {device} against the CPU: {row}")
+        results[method] = row
+    from pyorc_tpu_torch import ndx
+
+    cc = nadir_camera_config(h, w)
+    stack = rgb_stack(h, w, RGB_FRAMES, device)
+    gray = frames_dataarray(stack[..., 0], cc)
+    rgb = ndx.DataArray(
+        stack, dims=("time", "y", "x", "rgb"), coords={k: gray[k].values for k in ("time", "y", "x")},
+        attrs=dict(gray.attrs), name="frames",
+    )
+    with _stage(times, "project[rgb]"):
+        got = rgb.frames.project()
+    want = _on_cpu(device, lambda: rgb.frames.project())
+    if got.dims != ("time", "y", "x", "rgb") or got.shape != (RGB_FRAMES, *proj.shape[1:], 3):
+        raise AssertionError(f"RGB project: dims {got.dims}, shape {got.shape}")
+    diff = np.abs(got.values.astype(np.int16) - want.values.astype(np.int16))
+    results["project[rgb]"] = {"shape": list(got.shape), "dtype": str(got.values.dtype), "cpu_frames": RGB_FRAMES,
+                               "max_abs_diff": float(diff.max()), "tolerance": 0}
+    if diff.max() != 0 or not got.values.any():
+        raise AssertionError(f"RGB project on {device} against the CPU: {results['project[rgb]']}")
+    return results, times
+
+
+def stiv_lines_inside(proj, angle, length, n_lines=STIV_LINES):
+    """[n, 2] centres (x, y) [m] of a grid of lines of ``length`` at ``angle``, every end inside ``proj``."""
+    x, y = proj["x"].values, proj["y"].values
+    half_x = abs(np.cos(angle)) * length / 2 + 0.1
+    half_y = abs(np.sin(angle)) * length / 2 + 0.1
+    cx = np.linspace(x.min() + half_x, x.max() - half_x, n_lines[1])
+    cy = np.linspace(y.min() + half_y, y.max() - half_y, n_lines[0])
+    return np.array([[a, b] for b in cy for a in cx])
+
+
+def stiv_phase(proj, h, w, n_lines=STIV_LINES):
+    """Drive the port's second velocimetry path on the per-pair slice's projected stack ``proj``
+    (camera frames h x w): smooth -> get_stiv on lines along the analytic flow direction.
+
+    The median v must lie within STIV_RTOL of the analytic speed ``hypot(v_x, v_y)`` with
+    every line's coherence above STIV_COH_MIN; along ``angle + pi`` it must read the opposite
+    sign; and a profile call (``window=STIV_WINDOW``) must meet the same bar in the median of
+    its interior points. Returns (results, stage times).
+    """
+    cc = nadir_camera_config(h, w)
+    vx, vy = expected_velocity(cc)
+    speed, angle = float(np.hypot(vx, vy)), float(np.arctan2(vy, vx))
+    centers = stiv_lines_inside(proj, angle, STIV_LENGTH, n_lines)
+    n_samples = int(round(STIV_LENGTH / RES / STIV_STEP_PX)) + 1
+    times = {}
+    with _stage(times, "smooth[stiv]"):
+        smooth = proj.frames.smooth(wdw=STIV_SMOOTH_WDW)
+    with _stage(times, "get_stiv"):
+        along = smooth.frames.get_stiv(centers, angle, STIV_LENGTH, n_samples=n_samples)
+    with _stage(times, "get_stiv[reverse]"):
+        against = smooth.frames.get_stiv(centers, angle + np.pi, STIV_LENGTH, n_samples=n_samples)
+    with _stage(times, "get_stiv[profile]"):
+        profile = smooth.frames.get_stiv(centers, angle, STIV_LENGTH, n_samples=n_samples, window=STIV_WINDOW)
+    results = {"speed_true": speed, "angle": angle, "n_lines": len(centers), "n_samples": n_samples,
+               "frames": proj.shape[0]}
+    margin = STIV_WINDOW  # profile points whose box and shear margin lie inside the line
+    for name, ds, sign in (("along", along, 1.0), ("against", against, -1.0), ("profile", profile, 1.0)):
+        v, coh = ds["v"].values, ds["coherence"].values
+        want_dims = ("line", "points") if name == "profile" else ("line",)
+        if ds["v"].dims != want_dims or v.shape[0] != len(centers) or v.dtype != np.float32:
+            raise AssertionError(f"STIV {name}: dims {ds['v'].dims}, shape {v.shape}, dtype {v.dtype}")
+        if name == "profile":
+            if v.shape[1] != n_samples:
+                raise AssertionError(f"STIV profile: {v.shape[1]} points, not {n_samples}")
+            v, coh = v[:, margin:-margin], coh[:, margin:-margin]
+        median, coh_min = float(np.nanmedian(v)), float(np.nanmin(coh))
+        results[name] = {"v_median": median, "v_min": float(np.nanmin(v)), "v_max": float(np.nanmax(v)),
+                         "coherence_min": coh_min, "coherence_median": float(np.nanmedian(coh))}
+        if not abs(median - sign * speed) <= STIV_RTOL * speed:
+            raise AssertionError(f"STIV {name}: median v {median} vs {sign * speed} m/s; {results[name]}")
+        # a profile's single points may dip; its lines and the whole-line calls may not
+        low = float(np.nanmedian(coh)) if name == "profile" else coh_min
+        if not low > STIV_COH_MIN:
+            raise AssertionError(f"STIV {name}: coherence {low} not above {STIV_COH_MIN}; {results[name]}")
+    return results, times
 
 
 def _median_ms(fn, reps=10):
@@ -892,33 +1071,25 @@ def _union_ms(intervals, rng):
     return total / 1e3
 
 
-def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
-    """Run the slices under ``torch.profiler``; returns per-stage times [ms] and idle share.
-
-    ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
-    per-pair slice (whose projected stack the multipass and non-square
-    slices reuse) and the ensemble slice (whose projected stack the wide
-    ensemble slice reuses). A stage's device time is the union of
-    the device events (kernels and copies) that fall inside its host time
-    range; every stage ends with a copy to the host, so its device work
-    finishes inside that range. ``copy_ms`` is the part spent in
-    host<->device copies.
-    """
+def _profiler(device):
+    """A ``torch.profiler.profile`` that records the host, and the card when ``device`` is one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        _, times, proj, _ = slice_phase(*slice_shape, device)
-        _, mp_times, _ = multipass_phase(proj, *slice_shape[:2])
-        _, ns_times, _ = non_square_phase(proj, *slice_shape[:2])
-        del proj
-        _, ens_times, ens_proj, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
-        _, wide_times, _ = wide_ensemble_phase(ens_proj, *ens_shape[:2], camera=ens_camera)
-    for more in (mp_times, ns_times, ens_times, wide_times):
-        times.update(more)
+    return profile(activities=activities)
+
+
+def _stage_rows(prof, times):
+    """Per-stage wall and device times [ms] and idle share of the stages ``times`` names, from a finished profile.
+
+    A stage's device time is the union of the device events (kernels and
+    copies) that fall inside its host time range; every stage ends with a
+    copy to the host, so its device work finishes inside that range.
+    ``copy_ms`` is the part spent in host<->device copies.
+    """
     events = prof.events()
     ranges = {e.name: e.time_range for e in events if e.name in times and e.device_type.name == "CPU"}
     device_events = [e for e in events if e.device_type.name == "CUDA" and e.name not in times]
@@ -931,6 +1102,28 @@ def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA):
         out[name] = {"wall_ms": wall, "device_ms": device_ms, "copy_ms": _union_ms(copies, rng),
                      "idle": 1.0 - device_ms / wall}
     return out
+
+
+def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA, stiv_lines=STIV_LINES):
+    """Run the slices under ``torch.profiler``; returns per-stage times [ms] and idle share (:func:`_stage_rows`).
+
+    ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
+    per-pair slice (whose projected stack the multipass, non-square, filters
+    and STIV phases reuse) and the ensemble slice (whose projected stack the
+    wide ensemble slice reuses).
+    """
+    with _profiler(device) as prof:
+        _, times, proj, _ = slice_phase(*slice_shape, device)
+        _, mp_times, _ = multipass_phase(proj, *slice_shape[:2])
+        _, ns_times, _ = non_square_phase(proj, *slice_shape[:2])
+        _, flt_times = filters_phase(proj, *slice_shape[:2], device)
+        _, stiv_times = stiv_phase(proj, *slice_shape[:2], stiv_lines)
+        del proj
+        _, ens_times, ens_proj, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
+        _, wide_times, _ = wide_ensemble_phase(ens_proj, *ens_shape[:2], camera=ens_camera)
+    for more in (mp_times, ns_times, flt_times, stiv_times, ens_times, wide_times):
+        times.update(more)
+    return _stage_rows(prof, times)
 
 
 def _print_card(torch):
@@ -1036,7 +1229,24 @@ def main(argv) -> int:
           "stages " + json.dumps({k: round(v, 4) for k, v in ns_times.items()}))
     print("non-square slice results " + json.dumps(ns_results))
     ns_main = main_path_check(proj, {NS_WINDOW: ns_piv}, device)[NS_WINDOW]
-    del proj, ns_piv
+    del ns_piv
+
+    t0 = time.perf_counter()
+    flt_results, flt_times = filters_phase(proj, 1080, 1920, device)
+    wall = time.perf_counter() - t0
+    print(f"filters phase on the projected stack {tuple(proj.shape)} and {RGB_FRAMES} RGB frames 1920x1080 "
+          f"(card against the port on the CPU): wall {wall:.3f} s; stages "
+          + json.dumps({k: round(v, 4) for k, v in flt_times.items()}))
+    print("filters results " + json.dumps(flt_results), flush=True)
+
+    t0 = time.perf_counter()
+    with _profiler(device) as prof:
+        stiv_results, stiv_times = stiv_phase(proj, 1080, 1920)
+    wall = time.perf_counter() - t0
+    print(f"STIV phase on the projected stack: wall {wall:.3f} s; stages [ms] "
+          + json.dumps({k: {m: round(x, 3) for m, x in row.items()} for k, row in _stage_rows(prof, stiv_times).items()}))
+    print("STIV results " + json.dumps(stiv_results), flush=True)
+    del proj, prof
 
     h, w = ENS_SHAPE
     t0 = time.perf_counter()

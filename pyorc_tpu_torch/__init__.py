@@ -1,8 +1,8 @@
 """pyorc_tpu_torch — the PyTorch/CUDA port of pyorc_tpu.
 
 River frames in, surface velocity fields and discharge out, on an NVIDIA
-GPU: frame normalization and orthorectification run as PyTorch ops on the
-device, and the per-pair PIV correlation runs as a hand-written CUDA kernel
+GPU: the frame filters, orthorectification and STIV run as PyTorch ops on the
+device, and the PIV correlation runs as hand-written CUDA kernels
 (:mod:`pyorc_tpu_torch.ops.piv_kernels`). The geometry core (camera model,
 PnP, CRS) is host-side float64 numpy, as in the JAX package.
 
@@ -15,7 +15,7 @@ __version__ = "0.1.0"
 
 from . import ndx
 from ._device import get_device, set_device
-from .ndx import DataArray, Dataset
+from .ndx import DataArray, Dataset, open_dataset
 from . import api as _api  # registers .frames/.velocimetry/.transect accessors  # noqa: E402
 from .api.cameraconfig import CameraConfig, get_camera_config, load_camera_config  # noqa: E402
 
@@ -23,6 +23,7 @@ __all__ = [
     "DataArray",
     "Dataset",
     "ndx",
+    "open_dataset",
     "CameraConfig",
     "get_camera_config",
     "load_camera_config",

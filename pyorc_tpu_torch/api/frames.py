@@ -1,13 +1,14 @@
-"""Frames accessor: normalization, orthorectification, PIV entry point.
+"""Frames accessor: preprocessing filters, orthorectification, PIV and STIV entry points.
 
 Port of :mod:`pyorc_tpu.api.frames` (reference ``pyorc/api/frames.py``) for
-in-memory frame stacks: each op uploads the stack to the device in batches,
-runs there as PyTorch ops (:mod:`pyorc_tpu_torch.ops.filters`,
-:mod:`pyorc_tpu_torch.ops.ortho`), and returns host arrays; the PIV loop,
-time-resolved or ensemble, streams through the CUDA kernels
-(:mod:`pyorc_tpu_torch.velocimetry`). Lazy
-video-backed stacks, the other filters, STIV and the exports are not ported
-yet (ROADMAP.md, queue A).
+in-memory frame stacks, gray or RGB: each op uploads the stack to the device
+(per-frame ops in batches), runs there as PyTorch ops
+(:mod:`pyorc_tpu_torch.ops.filters`, :mod:`pyorc_tpu_torch.ops.ortho`,
+:mod:`pyorc_tpu_torch.ops.stiv`), and returns host arrays; the PIV loop,
+time-resolved, multipass or ensemble, streams through the CUDA kernels
+(:mod:`pyorc_tpu_torch.velocimetry`). Lazy video-backed stacks and the
+exports (video, animation, GeoTIFF, plot) are not ported yet (ROADMAP.md,
+queue A).
 """
 
 from __future__ import annotations
@@ -50,23 +51,35 @@ class Frames(ORCBase):
             outs.append(fn(chunk).cpu().numpy())
         return np.concatenate(outs, axis=0)
 
-    def _with_data(self, data, dims=None) -> ndx.DataArray:
-        """New frames DataArray with the same coords and attrs."""
+    def _whole_on_device(self) -> torch.Tensor:
+        """The whole stack on the device, for the ops that reduce or difference over time."""
+        return torch.as_tensor(np.ascontiguousarray(self._obj.data)).to(get_device())
+
+    def _with_data(self, data, dims=None, drop_time: int = 0) -> ndx.DataArray:
+        """New frames DataArray with the same coords and attrs (optionally the first frames dropped)."""
         obj = self._obj
         dims = obj.dims if dims is None else dims
         new = ndx.DataArray(data, dims=dims, name=obj.name, attrs=dict(obj.attrs), fastpath=True)
-        new._coords.update(obj._coords)
+        for k, c in obj._coords.items():
+            if drop_time and "time" in c.dims:
+                new._coords[k] = c.isel(time=slice(drop_time, None))
+            else:
+                new._coords[k] = c
         return new
 
-    def _require_gray(self, what: str) -> None:
+    def _require_gray(self, what: str, why: str) -> None:
+        """The JAX package has no usable ``what`` of an RGB stack (``why``); neither has the port."""
         if "rgb" in self._obj.dims:
-            raise NotImplementedError(f"{what} of RGB frames is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A).")
+            raise NotImplementedError(
+                f"{what} takes gray frames [time, y, x]: on an RGB stack the JAX package {why} "
+                "(ROADMAP.md, queue C)."
+            )
 
     # -- filters ------------------------------------------------------------
 
     def normalize(self, samples: int = 15) -> ndx.DataArray:
         """Remove the temporal mean of sampled frames. Reference frames.py:279-306."""
-        self._require_gray("normalize")
+        self._require_gray("normalize", "rescales each image row by the extrema over (x, rgb), not each frame")
         n = self._obj.shape[0]
         time_interval = round(n / samples)
         if time_interval == 0:
@@ -74,6 +87,46 @@ class Frames(ORCBase):
         sampled = np.asarray(self._obj.data[::time_interval]).astype(np.float32)
         mean = torch.as_tensor(sampled.mean(axis=0).astype(np.float32)).to(get_device())
         out = self._map_device(lambda f: flt.normalize_with_mean(f, mean))
+        return self._with_data(out)
+
+    def edge_detect(self, wdw_1: int = 1, wdw_2: int = 2) -> ndx.DataArray:
+        """Difference of two Gaussian blurs with half-widths ``wdw_1`` < ``wdw_2``, float32."""
+        self._require_gray("edge_detect", "raises in its padding of three axes")
+        stride_1 = wdw_1 * 2 + 1
+        stride_2 = wdw_2 * 2 + 1
+        out = self._map_device(lambda f: flt.edge_detect(f, stride_1, stride_2), batch=16)
+        return self._with_data(out)
+
+    def minmax(self, min: float = -np.inf, max: float = np.inf) -> ndx.DataArray:
+        """Clip intensities to [min, max]; the frames keep their dtype."""
+        out = self._map_device(lambda f: flt.minmax(f, float(min), float(max)).to(f.dtype))
+        return self._with_data(out)
+
+    def range(self) -> ndx.DataArray:
+        """Temporal intensity range per pixel (no time dimension)."""
+        out = flt.frame_range(self._whole_on_device()).cpu().numpy()
+        new = self._with_data(out, dims=tuple(d for d in self._obj.dims if d != "time"))
+        new._coords = {k: c for k, c in new._coords.items() if "time" not in c.dims}
+        return new
+
+    def reduce_rolling(self, samples: int = 25) -> ndx.DataArray:
+        """Remove the trailing rolling mean of ``samples`` frames; uint8, the first ``samples - 1`` frames 0."""
+        self._require_gray("reduce_rolling", "raises in broadcasting its [time, 1, 1] mask")
+        if self._obj.shape[0] < samples:
+            raise ValueError(f"Amount of frames is smaller than rolling of {samples} samples")
+        out = flt.reduce_rolling(self._whole_on_device(), samples).cpu().numpy()
+        return self._with_data(out)
+
+    def time_diff(self, thres: float = 0.0, abs: bool = False) -> ndx.DataArray:
+        """Frame-to-frame differences above ``thres`` (else 0), float32; one frame fewer, the first time dropped."""
+        out = flt.time_diff(self._whole_on_device(), float(thres), bool(abs)).cpu().numpy()
+        return self._with_data(out, drop_time=1)
+
+    def smooth(self, wdw: int = 1) -> ndx.DataArray:
+        """Gaussian blur with a kernel of ``2 * wdw + 1`` px (OpenCV's kernel for sigma 0), float32."""
+        self._require_gray("smooth", "raises in its padding of three axes")
+        stride = wdw * 2 + 1
+        out = self._map_device(lambda f: flt.gaussian_blur(f, stride), batch=16)
         return self._with_data(out)
 
     # -- projection ------------------------------------------------------------
@@ -88,14 +141,14 @@ class Frames(ORCBase):
 
         ``method="numpy"`` is the reference's name for the index-map
         projection (reference frames.py:199-277, project.py:164-230); here
-        the per-frame work is a gather on the device. ``method="cv"`` (the
-        reference's OpenCV warp) raises: this package has no OpenCV path.
+        the per-frame work is a gather on the device, band by band for RGB
+        frames [time, y, x, rgb]. ``method="cv"`` (the reference's OpenCV
+        warp) raises: this package has no OpenCV path.
         """
         if method == "cv":
             raise NotImplementedError('project(method="cv") is not supported by pyorc_tpu_torch; use method="numpy".')
         if method != "numpy":
             raise ValueError(f"Selected projection method {method} does not exist.")
-        self._require_gray("project")
         cc = copy.deepcopy(self.camera_config)
         if resolution is not None:
             cc.resolution = resolution
@@ -112,13 +165,21 @@ class Frames(ORCBase):
         z = cc.get_z_a(self.h_a)
         maps = ortho_ops.build_ortho_maps(cc, x, y, z, reducer=reducer)
         dmaps = ortho_ops.device_maps(maps, get_device())
+        is_rgb = "rgb" in self._obj.dims
         src_dtype = self._obj.dtype
-        out = self._map_device(lambda f: ortho_ops.project_batch(f, maps, dmaps), batch=32)
+
+        def project_chunk(f):
+            if is_rgb:
+                bands = [ortho_ops.project_batch(f[..., b], maps, dmaps) for b in range(f.shape[-1])]
+                return torch.stack(bands, dim=-1)
+            return ortho_ops.project_batch(f, maps, dmaps)
+
+        out = self._map_device(project_chunk, batch=32)
         out = np.nan_to_num(out).astype(src_dtype)
         da_proj = ndx.DataArray(
             out,
-            dims=("time", "y", "x"),
-            coords={"time": self._obj["time"].values, **coords},
+            dims=("time", "y", "x", "rgb") if is_rgb else ("time", "y", "x"),
+            coords={"time": self._obj["time"].values, **coords, **({"rgb": [0, 1, 2]} if is_rgb else {})},
             attrs=dict(self._obj.attrs),
             name="frames",
         )
@@ -184,7 +245,10 @@ class Frames(ORCBase):
         window_size = win.round_to_even(window_size)
         search_area_size = window_size
         if overlap is None:
-            overlap = 2 * (int(round(camera_config.window_size) / 2),)
+            # the configured size, before rounding to even: window 15 steps 9 px (16 - 7)
+            configured = camera_config.window_size
+            configured = 2 * (configured,) if isinstance(configured, int) else tuple(configured)
+            overlap = tuple(int(round(w) / 2) for w in configured)
         coords, mesh_coords = self.get_piv_coords(window_size, search_area_size, overlap)
         kwargs = {
             **kwargs,
@@ -204,3 +268,100 @@ class Frames(ORCBase):
         ds.attrs.update(camera_config=camera_config.to_json())
         ds.velocimetry.set_encoding()
         return ds
+
+    def get_stiv(
+        self,
+        centers,
+        angle: float,
+        length: float,
+        n_samples: int = None,
+        window: int = 0,
+        refine: int = 2,
+        min_coherence: float = None,
+    ) -> ndx.Dataset:
+        """Space-Time Image Velocimetry along flow-aligned search lines.
+
+        A capability the reference lists as wished-for but does not implement
+        (reference README.md:22); see :mod:`pyorc_tpu_torch.ops.stiv`. Frames
+        must be projected. For reliable streak angles pick ``n_samples`` so
+        the expected displacement per frame stays under ~1.5 sample steps.
+
+        Parameters
+        ----------
+        centers : [n_lines, 2] array
+            line centre points (x, y) in the projected local coordinates
+            (metres, same axes as the frames' x/y coords).
+        angle : float
+            flow direction in radians from +x toward +y (math convention).
+        length : float
+            search-line length in metres.
+        n_samples : int, optional
+            samples per line; default one per resolution step.
+        window : int
+            if > 0, returns a velocity profile along each line (dims
+            ``(line, points)``) averaged over a box of this many samples.
+        refine : int
+            shear-refinement iterations for steep streaks.
+        min_coherence : float, optional
+            velocities whose coherence falls below this are set to NaN —
+            where texture is weak or motion crosses the line, the streak
+            angle (and hence v) is meaningless while coherence stays low.
+
+        Returns
+        -------
+        ndx.Dataset with ``v`` (m/s, signed along the flow direction) and
+        ``coherence`` (structure-tensor anisotropy in [0, 1], the STIV
+        quality metric).
+        """
+        from ..ops import stiv as stiv_ops
+
+        if not self.is_projected:
+            raise ValueError("STIV requires projected frames (run frames.project() first)")
+        self._require_gray("get_stiv", "raises in sampling [y, x, rgb] frames at (row, column) points")
+        res = float(self.camera_config.resolution)
+        x = self._obj["x"].values
+        y = self._obj["y"].values
+        centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
+        cols_c = (centers[:, 0] - x[0]) / (x[1] - x[0])
+        rows_c = (centers[:, 1] - y[0]) / (y[1] - y[0])
+        if n_samples is None:
+            n_samples = max(int(round(length / res)) + 1, 8)
+        # y rows run opposite to +y: flip the angle's y component
+        px_angle = np.arctan2(-np.sin(angle) * np.sign(y[0] - y[1]), np.cos(angle))
+        rows, cols = stiv_ops.stiv_lines(
+            np.stack([cols_c, rows_c], axis=1), px_angle, length / res, int(n_samples)
+        )
+        # the frames go up in their own dtype, batch by batch; only the
+        # sampled points become float32, and the STI stays on the device
+        device = get_device()
+        rows_d, cols_d = torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
+        data = self._obj.data
+        batch = 64
+        parts = []
+        for start in range(0, data.shape[0], batch):
+            chunk = torch.as_tensor(np.ascontiguousarray(data[start : start + batch])).to(device)
+            parts.append(stiv_ops.build_sti(chunk, rows_d, cols_d))
+        sti = torch.cat(parts, dim=1)
+        step_px = (length / res) / (n_samples - 1)
+        dt = float(np.mean(np.diff(self._obj["time"].values)))
+        v, coh = stiv_ops.sti_velocity(sti, step_px, dt, int(window), int(refine))
+        v = v.cpu().numpy() * res  # px/s -> m/s
+        coh = coh.cpu().numpy()
+        if min_coherence is not None:
+            v = np.where(coh >= min_coherence, v, np.nan)
+        dims = ("line", "points") if window and window > 0 else ("line",)
+        coords = {"line": np.arange(centers.shape[0])}
+        if len(dims) == 2:
+            coords["points"] = np.arange(v.shape[1])
+        return ndx.Dataset(
+            {
+                "v": (dims, v.astype(np.float32), {"units": "m s-1", "long_name": "STIV streamwise velocity"}),
+                "coherence": (dims, coh.astype(np.float32), {"units": "", "long_name": "STIV coherence"}),
+            },
+            coords={
+                **coords,
+                "xc": (("line",), centers[:, 0]),
+                "yc": (("line",), centers[:, 1]),
+            },
+            attrs=dict(self._obj.attrs),
+        )

@@ -15,7 +15,8 @@ implement the small subset of semantics the pipeline needs:
 The PyTorch port keeps its own copy of this module so that its accessor
 registry is separate from the JAX package's. Data are numpy arrays: the
 device work of the port happens inside the ops, which take and return host
-arrays at this boundary. netCDF-4 reading and writing are not ported yet.
+arrays at this boundary. netCDF-4 reading and writing go through h5py
+(:mod:`pyorc_tpu_torch.io.netcdf`), imported when first used.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "register_dataset_accessor",
     "concat",
     "broadcast_arrays",
+    "open_dataset",
 ]
 
 
@@ -1387,7 +1389,9 @@ class Dataset(_AccessorMixin):
     # netCDF round-trip -----------------------------------------------------------
 
     def to_netcdf(self, path, mode="w", encoding=None):
-        raise NotImplementedError("netCDF output is not ported to pyorc_tpu_torch yet (ROADMAP A8).")
+        from .io.netcdf import write_netcdf
+
+        write_netcdf(self, path, mode=mode, encoding=encoding)
 
     def close(self):
         pass
@@ -1432,4 +1436,6 @@ class _DatasetRolling:
 
 
 def open_dataset(path, **kw) -> Dataset:
-    raise NotImplementedError("netCDF input is not ported to pyorc_tpu_torch yet (ROADMAP A8).")
+    from .io.netcdf import read_netcdf
+
+    return read_netcdf(path, **kw)

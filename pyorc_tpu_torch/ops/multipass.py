@@ -20,10 +20,8 @@ plain version on the CPU. A coarser pass (256 px for ``window_size`` 64 and
 sends it to its XLA pipeline. The deformation, the median test and the
 predictor's resampling are plain tensor ops in float32.
 
-``map_coordinates(order=1, mode="nearest")`` of the JAX package is written
-out as a bilinear gather from floor, weights and edge-clamped indices, in
-its order of operations (``grid_sample``'s normalised coordinates would add
-rounding that JAX does not have). ``jnp.nanmedian`` averages the two middle
+``map_coordinates(order=1, mode="nearest")`` of the JAX package is
+:func:`pyorc_tpu_torch.ops.interp.map_linear`. ``jnp.nanmedian`` averages the two middle
 values of an even count; ``torch.nanmedian`` returns the lower one, so the
 median here is written out too.
 """
@@ -37,6 +35,7 @@ import torch
 
 from . import piv_kernels
 from . import windows as win
+from .interp import map_linear
 
 __all__ = ["piv_multipass", "multipass_window_sizes"]
 
@@ -106,35 +105,6 @@ def _median_validate(u: torch.Tensor, v: torch.Tensor, eps: float = 0.1, thresh:
     return fix(u), fix(v)
 
 
-def _map_linear(field: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """``map_coordinates(field, [rows, cols], order=1, mode="nearest")`` over the
-    last two axes of ``field`` [..., h, w] -> [..., h', w']. ``rows`` and
-    ``cols`` broadcast to [h', w'] (the same points for every leading index
-    of ``field``) or to [..., h', w'] (points of their own for each)."""
-    h, w = field.shape[-2], field.shape[-1]
-    r0 = torch.floor(rows)
-    c0 = torch.floor(cols)
-    wr1, wc1 = rows - r0, cols - c0
-    wr0, wc0 = 1 - wr1, 1 - wc1
-    ri0 = r0.long()
-    ci0 = c0.long()
-    ri = (ri0.clamp(0, h - 1), (ri0 + 1).clamp(0, h - 1))
-    ci = (ci0.clamp(0, w - 1), (ci0 + 1).clamp(0, w - 1))
-    flat = field.flatten(-2)
-
-    def take(a, b):
-        idx = a * w + b
-        out_shape = field.shape[:-2] + idx.shape[-2:]
-        # a broadcast (stride-0) index: the points are not copied per leading index
-        idx = idx.flatten(-2).expand(out_shape[:-2] + (-1,))
-        return torch.gather(flat, -1, idx).view(out_shape)
-
-    out = (wr0 * wc0) * take(ri[0], ci[0])
-    out = out + (wr0 * wc1) * take(ri[0], ci[1])
-    out = out + (wr1 * wc0) * take(ri[1], ci[0])
-    return out + (wr1 * wc1) * take(ri[1], ci[1])
-
-
 def _grid_coords(src: np.ndarray, dst, device) -> torch.Tensor:
     """Positions ``dst`` (pixels) in the index space of the window centres ``src``, clipped to it."""
     step = float(src[1] - src[0]) if len(src) > 1 else 1.0
@@ -150,7 +120,7 @@ def _grid_to_dense(field: torch.Tensor, rows: np.ndarray, cols: np.ndarray, h: i
     """
     rr = _grid_coords(rows, np.arange(h), field.device)
     cc = _grid_coords(cols, np.arange(w), field.device)
-    return _map_linear(field, rr[:, None], cc[None, :])
+    return map_linear(field, rr[:, None], cc[None, :])
 
 
 def _grid_to_grid(field: torch.Tensor, src_rows, src_cols, dst_rows, dst_cols) -> torch.Tensor:
@@ -162,7 +132,7 @@ def _grid_to_grid(field: torch.Tensor, src_rows, src_cols, dst_rows, dst_cols) -
     """
     rr = _grid_coords(src_rows, np.asarray(dst_rows, dtype=np.float32), field.device)
     cc = _grid_coords(src_cols, np.asarray(dst_cols, dtype=np.float32), field.device)
-    return _map_linear(field, rr[:, None], cc[None, :])
+    return map_linear(field, rr[:, None], cc[None, :])
 
 
 def _deform_pair(img_a: torch.Tensor, img_b: torch.Tensor, dr: torch.Tensor, dc: torch.Tensor):
@@ -173,8 +143,8 @@ def _deform_pair(img_a: torch.Tensor, img_b: torch.Tensor, dr: torch.Tensor, dc:
     h, w = img_a.shape[-2], img_a.shape[-1]
     base_r = torch.arange(h, dtype=torch.float32, device=img_a.device)[:, None]
     base_c = torch.arange(w, dtype=torch.float32, device=img_a.device)[None, :]
-    a_def = _map_linear(img_a, base_r - dr / 2, base_c - dc / 2)
-    b_def = _map_linear(img_b, base_r + dr / 2, base_c + dc / 2)
+    a_def = map_linear(img_a, base_r - dr / 2, base_c - dc / 2)
+    b_def = map_linear(img_b, base_r + dr / 2, base_c + dc / 2)
     return a_def, b_def
 
 

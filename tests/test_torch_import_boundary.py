@@ -32,6 +32,18 @@ def test_slice_runs_without_jax_and_host_libraries():
         assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
         results, *_ = chip_smoke.multipass_phase(proj[:6], 480, 640)
         assert set(results) == {{32, 26}}, results
+        results, _ = chip_smoke.filters_phase(proj, 480, 640, "cpu")
+        assert set(results) == {{"smooth", "edge_detect", "minmax", "time_diff", "reduce_rolling", "range",
+                                "project[rgb]"}}, results
+        assert pyorc_tpu_torch.get_device().type == "cpu"
+        results, _ = chip_smoke.stiv_phase(proj, 480, 640, n_lines=(2, 3))
+        assert set(results) >= {{"along", "against", "profile"}}, results
+        try:
+            proj.frames.get_piv(window_size=16)[["v_x"]].to_netcdf("never_written.nc")
+        except ImportError as err:
+            assert "h5py" in str(err), err
+        else:
+            raise AssertionError("to_netcdf wrote a file without h5py")
         camera = {{"f": 1000.0, "gcp_px": 60, "aoi_px": 100}}
         results, *_ = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera)
         assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"
@@ -68,3 +80,40 @@ def test_device_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         pyorc_tpu_torch.get_device()
     pyorc_tpu_torch.set_device("cpu")
     assert pyorc_tpu_torch.get_device().type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "stack,call",
+    [
+        ("gray", lambda f: f.smooth()),
+        ("gray", lambda f: f.edge_detect()),
+        ("gray", lambda f: f.minmax(min=10.0)),
+        ("gray", lambda f: f.time_diff()),
+        ("gray", lambda f: f.reduce_rolling(samples=2)),
+        ("gray", lambda f: f.range()),
+        ("rgb", lambda f: f.project()),
+        ("projected", lambda f: f.get_stiv([[1.0, 1.0]], angle=0.0, length=0.5)),
+    ],
+    ids=["smooth", "edge_detect", "minmax", "time_diff", "reduce_rolling", "range", "project-rgb", "get_stiv"],
+)
+def test_filters_and_stiv_refuse_to_run_without_the_card(monkeypatch, stack, call):
+    """The entry points of the second velocimetry path compute on the selected device only:
+    with CUDA absent and no set_device('cpu') they raise, as the earlier ones do."""
+    import numpy as np
+
+    import chip_smoke
+
+    pyorc_tpu_torch.set_device("cpu")
+    cc = chip_smoke.nadir_camera_config(240, 320, gcp_px=30, aoi_px=40)
+    da = chip_smoke.frames_dataarray(np.zeros((3, 240, 320), np.uint8), cc)
+    if stack == "rgb":
+        da = pyorc_tpu_torch.DataArray(
+            np.zeros((3, 240, 320, 3), np.uint8), dims=("time", "y", "x", "rgb"),
+            coords={k: da[k].values for k in ("time", "y", "x")}, attrs=dict(da.attrs), name="frames",
+        )
+    elif stack == "projected":
+        da = da.frames.project()
+    monkeypatch.setattr(_device, "_device", None)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="set_device"):
+        call(da.frames)
