@@ -5,7 +5,11 @@
 
 1. Prints the card (``nvidia-smi``), the torch and CUDA versions, and builds
    the CUDA kernels from ``pyorc_tpu_torch/csrc/`` into one library under
-   ``build/``.
+   ``build/``; then one line ``decoder_probe {...}``: what the machine offers
+   for video decode (cv2, its FFmpeg and whether it round-trips a lossless
+   FFV1 clip; the port's native FFmpeg decoder built from
+   ``native/decoder.cpp``; NVDEC's ``libnvcuvid.so.1``; libavcodec). A
+   missing decoder is reported, not a failure.
 2. Per-pair kernel phase: particle frames of 1088x1920, 9 frames with a
    known sub-pixel shift, at 16, 26, 52, 64, 96, 104 and 128 px windows and
    the non-square 64x128, 128x64 and 32x64 px (8 consecutive pairs, 50 %
@@ -29,6 +33,21 @@
    window grids; the kernel's output must also be the velocity field the
    slice produced. Both are timed, and so is the kernel on the same pairs
    given explicitly (``pair_stride=2``: one pair per block, no shared frames).
+5b. Lazy per-pair chain: the slice's host uint8 stack wrapped in the port's
+   ``LazyFrames`` through :class:`HostFrameSource` (the source hands out
+   batches as ``Video``'s decode does, without a decoder's cost) with the coords
+   and attrs of ``Video.get_frames``, then normalize -> project -> get_piv
+   (16 and 26 px) -> mask -> get_transect -> get_q -> get_river_flow, the
+   frames decoded, uploaded once and run through the chain per batch in a
+   prefetch thread. Held to the slice's bars and to the in-memory slice's
+   v_x, v_y, corr and s2n (equal, or within 1e-5); normalize and project may
+   download nothing, get_piv only its outputs, and upload at most one stack.
+   Prints per stage the wall, bytes up and down and the source's share.
+5c. Video chain, where the probe found that OpenCV round-trips a lossless
+   clip: that stack written as an FFV1 clip under ``build/``, opened with
+   ``pyorc_tpu_torch.Video`` (OpenCV decode) and driven as in step 5b at
+   16 px, with the same checks (v_x and v_y may differ from the in-memory
+   slice's by a float32 ulp: ``Video``'s times are ``n * 1000 / fps * 0.001``).
 6. Multipass slice: the same projected stack through get_piv(passes=3) at
    window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
@@ -68,6 +87,12 @@
    kernel and its plain version again, held to each other, and the slice's
    velocities held to the kernel's mean-plane displacements; both timed,
    and beside them ``torch.fft.rfft2`` + ``irfft2`` alone over those windows.
+12b. Lazy ensemble chain: step 5b on the 4K host stack (64 px, ensemble).
+   Then normalize -> project of that chain streamed two ways and held equal
+   batch by batch, timed in turns (port, JAX, port): whole frames up with each
+   frame's extrema taken on the card (the port's design), and the JAX
+   package's (extrema over the whole frame on the host, then only the ortho
+   source box cropped and uploaded).
 13. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
    ensemble_corr=True) -> masks -> get_transect -> get_q -> get_river_flow
    (Pallas B5's geometry, the kernel's largest plane), held to the truth as
@@ -87,9 +112,12 @@ stops after steps 1-3 (to compare two trees' kernels on one card).
     python3 chip_smoke.py --profile
 
 instead runs the five slices (per-pair, multipass, non-square, ensemble,
-wide ensemble) and the filters and STIV phases once under
-``torch.profiler`` and prints, per stage, the wall time, the device's busy time (kernels and copies) and its
-idle share; the raw per-stage numbers go to ``build/profile_slice.json``.
+wide ensemble), both lazy chains and the filters and STIV phases once under
+``torch.profiler`` (all host threads) and prints, per stage, the wall time,
+the device's busy time (kernels and copies), its idle share and the bytes
+moved each way, and the host time of the lazy chains' spans (``lazy:decode``,
+``lazy:upload`` and one per op); the raw numbers go to
+``build/profile_slice.json``.
 
 Every phase raises on failure. Without CUDA, or without the package beside
 it, the script exits with an error and prints no result. The functions
@@ -289,15 +317,24 @@ def transect_points(cc, n_points=25, margin_px=64, aoi_px=100):
     return x, y, z
 
 
+# Bytes each stage moved host -> device and device -> host (the port's
+# COPY_BYTES counters read around the stage), by stage name
+MOVED = {}
+
+
 @contextlib.contextmanager
 def _stage(times, name):
-    """Time a stage into ``times[name]`` and mark it for ``torch.profiler``."""
+    """Time a stage into ``times[name]``, its copies into ``MOVED[name]``, and mark it for ``torch.profiler``."""
     import torch
 
+    from pyorc_tpu_torch._device import COPY_BYTES
+
     t0 = time.perf_counter()
+    before = dict(COPY_BYTES)
     with torch.profiler.record_function(name):
         yield
     times[name] = time.perf_counter() - t0
+    MOVED[name] = {k: COPY_BYTES[k] - before[k] for k in before}
 
 
 def run_chain(frames_proj, window_size, cc, times, tag="", aoi_px=100, ensemble=False, passes=1, overlap=None):
@@ -374,8 +411,9 @@ def check_chain(piv, q, cc, w_px, rel_tol=None, fps=FPS, abs_tol=None):
             "Q": q_median, "Q_truth": float(q_truth)}
 
 
-def slice_phase(h, w, n_frames, device):
-    """Drive the port's main path.
+def slice_phase(h, w, n_frames, device, stack=None):
+    """Drive the port's main path on an in-memory stack (``stack``, default
+    ``advected_stack(h, w, n_frames)``).
 
     Returns (per-window results, stage times, projected frames, per-window
     PIV datasets before masking).
@@ -384,7 +422,8 @@ def slice_phase(h, w, n_frames, device):
 
     pyorc_tpu_torch.set_device(device)
     cc = nadir_camera_config(h, w)
-    stack = advected_stack(h, w, n_frames, device)
+    if stack is None:
+        stack = advected_stack(h, w, n_frames, device)
     da = frames_dataarray(stack, cc)
     times = {}
     with _stage(times, "normalize"):
@@ -449,9 +488,10 @@ def wide_ensemble_phase(proj, h, w, camera=ENS_CAMERA):
     return check_chain(piv, q, cc, ENS_WIDE_WINDOW, rel_tol=ENS_VEL_RTOL, fps=ENS_FPS), times, piv
 
 
-def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
+def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA, stack=None):
     """Drive the port's ensemble path: the nadir camera ``camera`` (see
-    nadir_camera_config) at ENS_FPS, ENS_WINDOW px windows at 50 % overlap.
+    nadir_camera_config) at ENS_FPS, ENS_WINDOW px windows at 50 % overlap, on
+    ``stack`` (default ``advected_stack(h, w, n_frames)``).
 
     Returns (results, stage times, projected frames, PIV dataset before masking).
     """
@@ -459,7 +499,9 @@ def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
 
     pyorc_tpu_torch.set_device(device)
     cc = nadir_camera_config(h, w, window_size=ENS_WINDOW, **camera)
-    da = frames_dataarray(advected_stack(h, w, n_frames, device), cc, fps=ENS_FPS)
+    if stack is None:
+        stack = advected_stack(h, w, n_frames, device)
+    da = frames_dataarray(stack, cc, fps=ENS_FPS)
     times = {}
     with _stage(times, "normalize[ens]"):
         norm = da.frames.normalize(samples=15)
@@ -472,6 +514,315 @@ def ensemble_slice_phase(h, w, n_frames, device, camera=ENS_CAMERA):
         raise AssertionError(f"ensemble PIV has {piv['v_x'].values.shape[0]} time steps, not 1")
     results = check_chain(piv, q, cc, ENS_WINDOW, rel_tol=ENS_VEL_RTOL, fps=ENS_FPS)
     return results, times, proj, piv
+
+
+class HostFrameSource:
+    """The lazy chain's frame source on a machine without a video decoder.
+
+    ``LazyFrames`` reads a video through ``_decode_frames(positions,
+    method)`` and ``fn``; this source answers from a host uint8 stack
+    [T, H, W] with a new array per call, as a decoder writes each batch into
+    a new buffer, and adds the seconds it took to ``seconds``.
+    """
+
+    def __init__(self, stack, fn="host uint8 stack"):
+        import threading
+
+        self.stack = stack
+        self.fn = fn
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def _decode_frames(self, positions, method):
+        if method != "grayscale":
+            raise ValueError(f"HostFrameSource holds gray frames, not {method!r}")
+        t0 = time.perf_counter()
+        out = self.stack[np.atleast_1d(positions)]
+        with self._lock:
+            self.seconds += time.perf_counter() - t0
+        return out
+
+
+def _timed_decode(video):
+    """``video`` with ``seconds``: the time its ``_decode_frames`` has taken, as
+    :class:`HostFrameSource` counts it (the method is wrapped on the instance)."""
+    import threading
+
+    decode, lock = video._decode_frames, threading.Lock()
+    video.seconds = 0.0
+
+    def timed(positions, method):
+        t0 = time.perf_counter()
+        out = decode(positions, method)
+        with lock:
+            video.seconds += time.perf_counter() - t0
+        return out
+
+    video._decode_frames = timed
+    return video
+
+
+def write_clip(stack, path, fps=FPS):
+    """Write the gray uint8 ``stack`` [T, H, W] to ``path`` (.avi) as a lossless FFV1 clip with OpenCV."""
+    import cv2
+
+    n, h, w = stack.shape
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FFV1"), float(fps), (w, h), isColor=False)
+    if not out.isOpened():
+        raise RuntimeError(f"OpenCV cannot write FFV1 to {path}")
+    try:
+        for frame in stack:
+            out.write(np.ascontiguousarray(frame))
+    finally:
+        out.release()
+    return path
+
+
+def _cv2_roundtrip():
+    """Whether OpenCV writes and reads back a lossless FFV1 clip (8 random frames of 64x96), as a string."""
+    import cv2
+
+    stack = np.random.default_rng(0).integers(0, 256, (8, 64, 96), dtype=np.uint8)
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = ROOT / "build" / "decoder_probe.avi"
+    try:
+        write_clip(stack, path)
+        cap = cv2.VideoCapture(str(path))
+        frames = []
+        while True:
+            ok, img = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2GRAY))
+        cap.release()
+    except (RuntimeError, cv2.error) as err:
+        return f"fails: {err}"
+    finally:
+        path.unlink(missing_ok=True)
+    if len(frames) == len(stack) and np.array_equal(np.asarray(frames), stack):
+        return "FFV1 round trip exact"
+    return f"FFV1 round trip read {len(frames)} of {len(stack)} frames, not equal"
+
+
+def lazy_dataarray(source, cc, fps=FPS):
+    """The frames ``Video.get_frames`` gives, backed by a ``LazyFrames`` over ``source``
+    (a :class:`HostFrameSource`): the coords and attrs of :func:`frames_dataarray`, and
+    the video's ``chunksize`` attribute (``Video``'s default)."""
+    from pyorc_tpu_torch import LazyFrames
+
+    n, h, w = source.stack.shape
+    lazy = LazyFrames(source, "grayscale", np.arange(n), (h, w), dtype=np.uint8)
+    da = frames_dataarray(lazy, cc, fps=fps)
+    da.attrs["chunksize"] = 20
+    return da
+
+
+def _piv_output_bytes(piv, n_pairs, w_px, ensemble):
+    """Bytes get_piv downloads: per pair u, v, cmax, s2n; for the ensemble the summed
+    w_px x w_px planes and counts once, and cmax, s2n per pair (float32 each)."""
+    n_rows, n_cols = piv["v_x"].shape[1:]
+    n_win = n_rows * n_cols
+    if not ensemble:
+        return 4 * 4 * n_pairs * n_win
+    return 4 * (n_win * w_px * w_px + n_win + 2 * n_pairs * n_win)
+
+
+def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100, tag="lazy", video_file=None):
+    """Drive the port's lazy chain: ``stack`` (host uint8 [T, H, W]) wrapped in a
+    ``LazyFrames`` through a :class:`HostFrameSource` (or, with ``video_file``, a
+    lossless clip of ``stack`` opened with ``pyorc_tpu_torch.Video``: see
+    :func:`write_clip`), then normalize -> project -> get_piv -> mask ->
+    get_transect -> get_q -> get_river_flow at each window of ``ref_pivs``
+    (window px -> the in-memory slice's PIV dataset on the same frames).
+
+    Checks, for each window: the slice's bars (``check_chain``: VEL_TOL per pair,
+    ENS_VEL_RTOL for the ensemble, Q_TOL); v_x, v_y, corr and s2n against the
+    in-memory slice's, equal or within 1e-5 (the largest differences are
+    returned); that normalize and project moved no frames, that get_piv
+    downloaded its outputs and nothing else and uploaded at most one stack.
+    Returns (per-window results, stage times, per-stage rows: wall, bytes up and
+    down, the frame source's seconds and share of the wall; the projected lazy frames).
+    """
+    import pyorc_tpu_torch
+
+    pyorc_tpu_torch.set_device(device)
+    if video_file is None:
+        source = HostFrameSource(stack)
+        da = lazy_dataarray(source, cc, fps)
+    else:
+        video = pyorc_tpu_torch.Video(str(video_file), camera_config=cc, h_a=H_A, fps=fps, progress=False)
+        source = _timed_decode(video)
+        da = source.get_frames()
+        if da.shape != stack.shape:
+            raise AssertionError(f"Video gave frames {da.shape} of the clip of {stack.shape}")
+    times, rows, results = {}, {}, {}
+
+    def row(name, source_s):
+        rows[name] = {"wall_s": times[name], **MOVED[name], "source_s": source_s,
+                      "source_share": source_s / times[name]}
+
+    t_src = source.seconds
+    with _stage(times, f"normalize[{tag}]"):
+        norm = da.frames.normalize(samples=15)
+    row(f"normalize[{tag}]", source.seconds - t_src)
+    with _stage(times, f"project[{tag}]"):
+        proj = norm.frames.project()
+    row(f"project[{tag}]", 0.0)
+    for name in (f"normalize[{tag}]", f"project[{tag}]"):
+        if MOVED[name]["d2h"]:
+            raise AssertionError(f"{name} downloaded {MOVED[name]['d2h']} bytes")
+    for w_px, ref in ref_pivs.items():
+        sub = tag if ensemble else f"{tag} {_fmt(w_px)}px"
+        t_src = source.seconds
+        piv, q = run_chain(proj, w_px, cc, times, f"[{sub}]", aoi_px=aoi_px, ensemble=ensemble)
+        row(f"get_piv[{sub}]", source.seconds - t_src)
+        if ensemble:
+            res = check_chain(piv, q, cc, w_px, rel_tol=ENS_VEL_RTOL, fps=fps)
+        else:
+            res = check_chain(piv, q, cc, w_px)
+        moved = MOVED[f"get_piv[{sub}]"]
+        want_d2h = _piv_output_bytes(piv, stack.shape[0] - 1, w_px, ensemble)
+        if moved["d2h"] != want_d2h or moved["h2d"] > stack.nbytes:
+            raise AssertionError(
+                f"get_piv[{sub}] moved {moved}; outputs are {want_d2h} bytes, the stack {stack.nbytes}"
+            )
+        res["max_abs_diff_vs_in_memory"] = {}
+        for name in ("v_x", "v_y", "corr", "s2n"):
+            got, want = piv[name].values, ref[name].values
+            if got.shape != want.shape or not np.array_equal(np.isnan(got), np.isnan(want)):
+                raise AssertionError(f"lazy {sub} {name}: shape or NaN mask differs from the in-memory slice")
+            diff = float(np.nanmax(np.abs(got - want))) if np.isfinite(got).any() else 0.0
+            res["max_abs_diff_vs_in_memory"][name] = diff
+            if diff > 1e-5:
+                raise AssertionError(f"lazy {sub} {name}: differs from the in-memory slice by {diff}")
+        res["uploaded_bytes"], res["downloaded_bytes"] = moved["h2d"], moved["d2h"]
+        results[w_px] = res
+    return results, times, rows, proj
+
+
+def _host_extrema(batch, mean):
+    """Each frame's extrema of (frame - mean) in float32 over the whole frame, one frame at a
+    time: the JAX package's ``host_stats`` of normalize (``pyorc_tpu/api/frames.py:130-140``)."""
+    mins, maxs = [], []
+    for f in batch:
+        red = np.asarray(f, dtype=np.float32) - mean
+        mins.append(red.min(axis=(-2, -1), keepdims=True))
+        maxs.append(red.max(axis=(-2, -1), keepdims=True))
+    return np.stack(mins), np.stack(maxs)
+
+
+class _HostExtremaSource(HostFrameSource):
+    """A :class:`HostFrameSource` that also takes each batch's normalize extrema on the host
+    before the batch is cropped, as the JAX package's upload crop does."""
+
+    def __init__(self, stack, mean):
+        super().__init__(stack)
+        self.mean = mean
+        self.extrema = None
+
+    def _decode_frames(self, positions, method):
+        out = super()._decode_frames(positions, method)
+        self.extrema = _host_extrema(out, self.mean)
+        return out
+
+
+def upload_designs(stack, device, port=None, fps=ENS_FPS, chunk=40, camera=ENS_CAMERA):
+    """normalize -> project of the lazy chain over ``stack``, streamed by two designs and held equal batch by batch.
+
+    ``device_extrema``, the port's (``port``: the projected ``LazyFrames`` of
+    :func:`lazy_phase` on ``stack``, else built here): whole frames go up, and
+    normalize takes each frame's extrema on the device. ``host_extrema_crop``, the JAX package's
+    (``pyorc_tpu/api/frames.py:130-140, 253-334``): each frame's extrema are
+    taken on the host over the whole frame, then only the source box of the
+    ortho maps is cropped and uploaded. The designs run in turns (port, JAX,
+    port; JAX's took 6x the port's on the card, PERF.md §6), each consuming
+    ``chunk``-frame batches and waiting for the card. Returns {design: {"walls_s": [..], "uploaded_bytes": n}}.
+    """
+    import torch
+
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch import LazyFrames
+    from pyorc_tpu_torch._device import COPY_BYTES, to_device
+    from pyorc_tpu_torch.ops import filters as flt
+
+    pyorc_tpu_torch.set_device(device)
+    cc = nadir_camera_config(*stack.shape[1:], window_size=ENS_WINDOW, **camera)
+    da = lazy_dataarray(HostFrameSource(stack), cc, fps)
+    if port is None:
+        port = da.frames.normalize(samples=15).frames.project().data
+    raw = da.frames.project().data  # no op before project: its maps are cropped to the source box
+    r0, r1, c0, c1 = raw._crop
+    mean = stack[:: round(len(stack) / 15)].astype(np.float32).mean(axis=0).astype(np.float32)
+    source = _HostExtremaSource(stack, mean)
+    mean_crop = to_device(np.ascontiguousarray(mean[r0:r1, c0:c1]))
+
+    def normalize_crop(batch):
+        fmin, fmax = source.extrema  # the worker thread decodes and runs the ops of one batch in turn
+        return flt.normalize_with_stats(batch, mean_crop, to_device(fmin), to_device(fmax))
+
+    jax_design = LazyFrames(source, "grayscale", np.arange(len(stack)), port.shape[1:],
+                            ops=[normalize_crop, raw._ops[-1]], crop=raw._crop)
+    designs = {"device_extrema": port, "host_extrema_crop": jax_design}
+    out = {name: {"walls_s": []} for name in designs}
+    first = {}
+    for name in ("device_extrema", "host_extrema_crop", "device_extrema"):
+        h2d = COPY_BYTES["h2d"]
+        t0 = time.perf_counter()
+        batches = [b for _, b in designs[name].iter_batches(chunk)]
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        out[name]["walls_s"].append(time.perf_counter() - t0)
+        out[name]["uploaded_bytes"] = COPY_BYTES["h2d"] - h2d
+        first.setdefault(name, batches)
+    for a, b in zip(first["device_extrema"], first["host_extrema_crop"]):
+        if not torch.equal(a, b):
+            raise AssertionError("the two upload designs give different projected frames")
+    return out
+
+
+def decoder_probe():
+    """What this machine offers for video decode, as one dict: cv2 (its FFmpeg, and whether it
+    round-trips a lossless clip), the port's native decoder build (compiler, and the first error
+    line if it fails), ``libnvcuvid.so.1`` (NVDEC's library, installed beside libcuda) and the libavcodec
+    that ``ldconfig -p`` lists. A missing decoder is an answer."""
+    import ctypes
+    import shutil
+
+    from pyorc_tpu_torch.io import native_decoder
+
+    out = {}
+    try:
+        import cv2
+
+        out["cv2"] = cv2.__version__
+        ffmpeg = [line.split(":", 1)[1].strip() for line in cv2.getBuildInformation().splitlines()
+                  if line.strip().startswith("FFMPEG:")]
+        out["cv2_ffmpeg"] = ffmpeg[0] if ffmpeg else "not listed"
+        out["cv2_video_io"] = _cv2_roundtrip()
+    except ImportError as err:
+        out["cv2"] = f"absent ({err})"
+    out["native_compiler"] = native_decoder._compiler()
+    err = native_decoder.load_error()
+    if err is None:
+        out["native_decoder"] = "built"
+    else:
+        lines = err.splitlines()
+        first = next((line for line in lines[1:] if "error" in line), lines[0])
+        out["native_decoder"] = f"unavailable: {first.strip()}"
+    try:
+        ctypes.CDLL("libnvcuvid.so.1")
+        out["libnvcuvid"] = "loads"
+    except OSError as err:
+        out["libnvcuvid"] = f"absent ({err})"
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    if Path(ldconfig).exists():
+        listed = subprocess.run([ldconfig, "-p"], capture_output=True, text=True)
+        out["libavcodec"] = sorted({line.split()[0] for line in listed.stdout.splitlines() if "libavcodec" in line})
+        if listed.returncode:
+            out["libavcodec"] = f"ldconfig -p exited {listed.returncode}: {listed.stderr.strip()[:200]}"
+    else:
+        out["libavcodec"] = "ldconfig not found"
+    return out
 
 
 def _on_cpu(device, run):
@@ -1072,14 +1423,20 @@ def _union_ms(intervals, rng):
 
 
 def _profiler(device):
-    """A ``torch.profiler.profile`` that records the host, and the card when ``device`` is one."""
+    """A ``torch.profiler.profile`` that records the host's threads (the lazy chain runs in a
+    prefetch thread), and the card when ``device`` is one."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
+    try:
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:  # a torch without the option records the calling thread only
+        config = None
+    return profile(activities=activities, experimental_config=config)
 
 
 def _stage_rows(prof, times):
@@ -1104,26 +1461,50 @@ def _stage_rows(prof, times):
     return out
 
 
+def _span_rows(prof, prefix="lazy:"):
+    """Calls and host time [ms] of the spans named ``prefix``... (the lazy chain's decode,
+    upload and ops, recorded in its prefetch thread), from a finished profile."""
+    rows = {}
+    for e in prof.events():
+        if e.name.startswith(prefix) and e.device_type.name == "CPU":
+            row = rows.setdefault(e.name, {"calls": 0, "host_ms": 0.0})
+            row["calls"] += 1
+            row["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    return rows
+
+
 def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA, stiv_lines=STIV_LINES):
-    """Run the slices under ``torch.profiler``; returns per-stage times [ms] and idle share (:func:`_stage_rows`).
+    """Run the slices under ``torch.profiler``; returns (per-stage times [ms] and idle share
+    (:func:`_stage_rows`), per-op spans of the lazy chains (:func:`_span_rows`)).
 
     ``slice_shape`` and ``ens_shape`` are the (h, w, n_frames) of the
     per-pair slice (whose projected stack the multipass, non-square, filters
-    and STIV phases reuse) and the ensemble slice (whose projected stack the
-    wide ensemble slice reuses).
+    and STIV phases reuse, and whose host stack the lazy per-pair chain
+    streams) and the ensemble slice (whose projected stack the wide ensemble
+    slice reuses, and whose host stack the lazy ensemble chain streams).
     """
+    stack = advected_stack(*slice_shape, device)
+    ens_stack = advected_stack(*ens_shape, device)
+    ens_cc = nadir_camera_config(*ens_shape[:2], window_size=ENS_WINDOW, **ens_camera)
     with _profiler(device) as prof:
-        _, times, proj, _ = slice_phase(*slice_shape, device)
+        _, times, proj, pivs = slice_phase(*slice_shape, device, stack=stack)
+        _, lazy_times, _, _ = lazy_phase(stack, nadir_camera_config(*slice_shape[:2]), pivs, device)
+        del pivs
         _, mp_times, _ = multipass_phase(proj, *slice_shape[:2])
         _, ns_times, _ = non_square_phase(proj, *slice_shape[:2])
         _, flt_times = filters_phase(proj, *slice_shape[:2], device)
         _, stiv_times = stiv_phase(proj, *slice_shape[:2], stiv_lines)
         del proj
-        _, ens_times, ens_proj, _ = ensemble_slice_phase(*ens_shape, device, camera=ens_camera)
+        _, ens_times, ens_proj, ens_piv = ensemble_slice_phase(*ens_shape, device, camera=ens_camera, stack=ens_stack)
+        _, lazy_ens_times, _, _ = lazy_phase(
+            ens_stack, ens_cc, {ENS_WINDOW: ens_piv}, device, fps=ENS_FPS, ensemble=True,
+            aoi_px=ens_camera["aoi_px"], tag="lazy ens",
+        )
+        del ens_piv
         _, wide_times, _ = wide_ensemble_phase(ens_proj, *ens_shape[:2], camera=ens_camera)
-    for more in (mp_times, ns_times, flt_times, stiv_times, ens_times, wide_times):
+    for more in (lazy_times, mp_times, ns_times, flt_times, stiv_times, ens_times, lazy_ens_times, wide_times):
         times.update(more)
-    return _stage_rows(prof, times)
+    return _stage_rows(prof, times), _span_rows(prof)
 
 
 def _print_card(torch):
@@ -1180,14 +1561,23 @@ def main(argv) -> int:
     log_file = lib.with_suffix(".log")
     if log_file.exists():
         print(log_file.read_text().strip())
+    probe = decoder_probe()
+    print("decoder_probe " + json.dumps(probe), flush=True)
 
     if "--profile" in argv:
-        stages = profile_slice(device, (1080, 1920, 126), (*ENS_SHAPE, ENS_FRAMES))
+        stages, spans = profile_slice(device, (1080, 1920, 126), (*ENS_SHAPE, ENS_FRAMES))
+        for name, row in stages.items():
+            row.update({f"{k}_bytes": v for k, v in MOVED.get(name, {}).items()})
         (ROOT / "build").mkdir(exist_ok=True)
-        (ROOT / "build" / "profile_slice.json").write_text(json.dumps(stages, indent=1))
+        profile = {"stages": stages, "lazy_spans": spans}
+        (ROOT / "build" / "profile_slice.json").write_text(json.dumps(profile, indent=1))
         for name, row in stages.items():
             print(f"profile {name}: wall {row['wall_ms']:.1f} ms, device {row['device_ms']:.1f} ms "
-                  f"(copies {row['copy_ms']:.1f} ms), idle {row['idle']:.3f}")
+                  f"(copies {row['copy_ms']:.1f} ms), idle {row['idle']:.3f}, "
+                  f"bytes up {row.get('h2d_bytes')}, down {row.get('d2h_bytes')}")
+        spans = {k: {m: round(x, 3) for m, x in r.items()} for k, r in spans.items()}
+        print("profile lazy chain spans (host ms, calls; the prefetch thread's): "
+              + (json.dumps(spans) if spans else "none recorded"))
         return 0
 
     kern = kernel_phase(device)
@@ -1195,15 +1585,42 @@ def main(argv) -> int:
     if "--kernels-only" in argv:
         return 0
 
+    stack = advected_stack(1080, 1920, 126, device)
     t0 = time.perf_counter()
     (results, times, proj, pivs), pairs_launches = _drive(
-        piv_kernels, "piv_pairs", lambda: slice_phase(1080, 1920, 126, device)
+        piv_kernels, "piv_pairs", lambda: slice_phase(1080, 1920, 126, device, stack=stack)
     )
     wall = time.perf_counter() - t0
     print(f"slice 1920x1080x126: wall {wall:.3f} s; stages " + json.dumps({k: round(v, 4) for k, v in times.items()}))
     print("slice results " + json.dumps(results))
     main_errs = main_path_check(proj, pivs, device)
-    del pivs
+
+    t0 = time.perf_counter()
+    (lazy_results, _, lazy_rows, _), lazy_launches = _drive(
+        piv_kernels, "piv_pairs", lambda: lazy_phase(stack, nadir_camera_config(1080, 1920), pivs, device)
+    )
+    wall = time.perf_counter() - t0
+    print(f"lazy chain 1920x1080x126 from a host frame source: wall {wall:.3f} s; {lazy_launches} launches; "
+          "stages " + json.dumps(lazy_rows))
+    print("lazy chain results " + json.dumps(lazy_results), flush=True)
+    video_launches = 0
+    if probe.get("cv2_video_io") == "FFV1 round trip exact":
+        clip = write_clip(stack, ROOT / "build" / "smoke_1080p.avi")
+        t0 = time.perf_counter()
+        (video_results, _, video_rows, _), video_launches = _drive(
+            piv_kernels, "piv_pairs",
+            lambda: lazy_phase(stack, nadir_camera_config(1080, 1920), {16: pivs[16]}, device, tag="video",
+                               video_file=clip),
+        )
+        wall = time.perf_counter() - t0
+        clip.unlink()
+        print(f"video chain: pyorc_tpu_torch.Video on a lossless FFV1 clip of that stack (OpenCV decode): wall "
+              f"{wall:.3f} s; {video_launches} launches; stages " + json.dumps(video_rows))
+        print("video chain results " + json.dumps(video_results), flush=True)
+    else:
+        why = probe.get("cv2_video_io", probe["cv2"])
+        print(f"video chain not run: OpenCV cannot round-trip a lossless clip here ({why})")
+    del pivs, stack
 
     t0 = time.perf_counter()
     (mp_results, mp_times, mp_pivs), mp_launches = _drive(
@@ -1249,16 +1666,34 @@ def main(argv) -> int:
     del proj, prof
 
     h, w = ENS_SHAPE
+    ens_stack = advected_stack(h, w, ENS_FRAMES, device)
     t0 = time.perf_counter()
     (ens_results, ens_times, ens_proj, ens_piv), ens_launches = _drive(
-        piv_kernels, "piv_ensemble", lambda: ensemble_slice_phase(h, w, ENS_FRAMES, device)
+        piv_kernels, "piv_ensemble", lambda: ensemble_slice_phase(h, w, ENS_FRAMES, device, stack=ens_stack)
     )
     wall = time.perf_counter() - t0
     print(f"ensemble slice {w}x{h}x{ENS_FRAMES}: wall {wall:.3f} s; {ens_launches} launches; stages "
           + json.dumps({k: round(v, 4) for k, v in ens_times.items()}))
     print("ensemble slice results " + json.dumps(ens_results))
     ens_main = ensemble_main_path_check(ens_proj, ens_piv, device)
+
+    t0 = time.perf_counter()
+    ens_cc = nadir_camera_config(h, w, window_size=ENS_WINDOW, **ENS_CAMERA)
+    (lazy_ens_results, _, lazy_ens_rows, lazy_ens_proj), lazy_ens_launches = _drive(
+        piv_kernels, "piv_ensemble",
+        lambda: lazy_phase(ens_stack, ens_cc, {ENS_WINDOW: ens_piv}, device, fps=ENS_FPS, ensemble=True,
+                           aoi_px=ENS_CAMERA["aoi_px"], tag="lazy ens"),
+    )
+    wall = time.perf_counter() - t0
+    print(f"lazy ensemble chain {w}x{h}x{ENS_FRAMES} from a host frame source: wall {wall:.3f} s; "
+          f"{lazy_ens_launches} launches; stages " + json.dumps(lazy_ens_rows))
+    print("lazy ensemble chain results " + json.dumps(lazy_ens_results), flush=True)
     del ens_piv
+    designs = upload_designs(ens_stack, device, port=lazy_ens_proj.data)
+    del lazy_ens_proj
+    print(f"lazy 4K normalize -> project, whole frames up with the extrema on the card against the JAX package's "
+          f"host extrema and cropped upload (same frames out): {json.dumps(designs)}", flush=True)
+    del ens_stack
     print(f"torch.fft.rfft2 + irfft2 alone over the {ENS_WINDOW} px windows of that stack "
           f"(context, not the kernel's contract): {fft_alone_ms(ens_proj, device):.3f} ms", flush=True)
 
@@ -1280,7 +1715,7 @@ def main(argv) -> int:
         {
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
             "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
-            "launches": pairs_launches + mp_launches + ns_launches,
+            "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches,
             "max_abs_err": max(
                 e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), *mp_main.values(), ns_main]
             ),
@@ -1291,10 +1726,12 @@ def main(argv) -> int:
             "bound_ms_128px": coarse["bound_ms"], "bound_by_128px": coarse["bound_by"],
             f"launches_{ns}px": ns_launches, f"ms_{ns}px": ns_main["ms"], f"plain_ms_{ns}px": ns_main["plain_ms"],
             f"bound_ms_{ns}px": ns_main["bound_ms"], f"bound_by_{ns}px": ns_main["bound_by"],
+            "launches_lazy": lazy_launches, "launches_video": video_launches,
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",
-            "replaces": "pyorc_tpu/ops/piv_pallas.py:1297", "launches": ens_launches + wide_launches,
+            "replaces": "pyorc_tpu/ops/piv_pallas.py:1297",
+            "launches": ens_launches + wide_launches + lazy_ens_launches, "launches_lazy": lazy_ens_launches,
             "max_abs_err": max(e["max_abs_duv_px"] for e in [*ens_kern.values(), ens_main, wide_main]),
             "ms": ens_main["ms"], "plain_ms": ens_main["plain_ms"],
             "bound_ms": ens_main["bound_ms"], "bound_by": ens_main["bound_by"], "library_ms": None,

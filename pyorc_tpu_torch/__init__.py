@@ -1,8 +1,8 @@
 """pyorc_tpu_torch — the PyTorch/CUDA port of pyorc_tpu.
 
-River frames in, surface velocity fields and discharge out, on an NVIDIA
-GPU: the frame filters, orthorectification and STIV run as PyTorch ops on the
-device, and the PIV correlation runs as hand-written CUDA kernels
+River videos or frame stacks in, surface velocity fields and discharge out,
+on an NVIDIA GPU: video decode runs on the host (:class:`Video`), the frame
+filters, orthorectification and STIV run as PyTorch ops on the device, and the PIV correlation runs as hand-written CUDA kernels
 (:mod:`pyorc_tpu_torch.ops.piv_kernels`). The geometry core (camera model,
 PnP, CRS) is host-side float64 numpy, as in the JAX package.
 
@@ -18,6 +18,7 @@ from ._device import get_device, set_device
 from .ndx import DataArray, Dataset, open_dataset
 from . import api as _api  # registers .frames/.velocimetry/.transect accessors  # noqa: E402
 from .api.cameraconfig import CameraConfig, get_camera_config, load_camera_config  # noqa: E402
+from .api.video import LazyFrames, Video  # noqa: E402
 
 __all__ = [
     "DataArray",
@@ -27,6 +28,8 @@ __all__ = [
     "CameraConfig",
     "get_camera_config",
     "load_camera_config",
+    "LazyFrames",
+    "Video",
     "get_device",
     "set_device",
     "__version__",

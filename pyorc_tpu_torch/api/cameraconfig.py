@@ -257,8 +257,9 @@ class CameraConfig:
     ):
         """Calibrate camera_matrix/dist_coeffs from a chessboard video (Zhang's method)."""
         raise NotImplementedError(
-            "Chessboard lens calibration needs video decoding, which pyorc_tpu_torch does not port "
-            "yet (ROADMAP.md, queue A)."
+            "Chessboard lens calibration (the JAX package's io/calibration.py) is not ported to "
+            "pyorc_tpu_torch yet; video decoding is (pyorc_tpu_torch.Video). ROADMAP.md, queue A, "
+            "lens calibration."
         )
 
     def estimate_lens_position(self):

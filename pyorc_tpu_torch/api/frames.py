@@ -1,32 +1,76 @@
 """Frames accessor: preprocessing filters, orthorectification, PIV and STIV entry points.
 
-Port of :mod:`pyorc_tpu.api.frames` (reference ``pyorc/api/frames.py``) for
-in-memory frame stacks, gray or RGB: each op uploads the stack to the device
-(per-frame ops in batches), runs there as PyTorch ops
-(:mod:`pyorc_tpu_torch.ops.filters`, :mod:`pyorc_tpu_torch.ops.ortho`,
-:mod:`pyorc_tpu_torch.ops.stiv`), and returns host arrays; the PIV loop,
-time-resolved, multipass or ensemble, streams through the CUDA kernels
-(:mod:`pyorc_tpu_torch.velocimetry`). Lazy video-backed stacks and the
-exports (video, animation, GeoTIFF, plot) are not ported yet (ROADMAP.md,
-queue A).
+Port of :mod:`pyorc_tpu.api.frames` (reference ``pyorc/api/frames.py``), gray
+or RGB, for two kinds of frame stack:
+
+- in memory (numpy): each op uploads the stack to the device (per-frame ops
+  in batches), runs there as PyTorch ops (:mod:`pyorc_tpu_torch.ops.filters`,
+  :mod:`pyorc_tpu_torch.ops.ortho`, :mod:`pyorc_tpu_torch.ops.stiv`), and
+  returns host arrays;
+- lazy, from ``Video.get_frames`` (:class:`pyorc_tpu_torch.api.video.LazyFrames`):
+  the per-frame ops (filters, ``project``) are appended to the stack's op
+  chain and run per batch on the device after one upload of the decoded
+  batch, so decode -> filters -> project streams into ``get_piv`` with no
+  download. ``project`` crops each decoded batch on the host to the source
+  box its maps read, when every op before it declares a stencil ``halo``.
+  The ops over time (``range``, ``time_diff``, ``reduce_rolling``) and
+  ``get_stiv`` read the chain's device batches.
+
+The PIV loop, time-resolved, multipass or ensemble, streams through the CUDA
+kernels (:mod:`pyorc_tpu_torch.velocimetry`). The exports (video, animation,
+GeoTIFF, plot) are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import const, helpers, ndx
-from .._device import get_device
+from .._device import get_device, to_device, to_host, torch_dtype
 from ..ops import filters as flt
 from ..ops import ortho as ortho_ops
 from ..ops import windows as win
 from .orcbase import ORCBase
+from .video import LazyFrames
 
 __all__ = ["Frames"]
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("", "0", "false", "no", "off")
+
+
+def _upload_crop_on() -> bool:
+    """The upload crop of lazy stacks, unless ``PYORC_TPU_NO_UPLOAD_CROP`` is true."""
+    value = os.environ.get("PYORC_TPU_NO_UPLOAD_CROP", "").strip().lower()
+    if value not in _TRUE + _FALSE:
+        raise ValueError(f"PYORC_TPU_NO_UPLOAD_CROP={value!r}: expected one of {_TRUE + _FALSE[1:]}")
+    return value in _FALSE
+
+
+class ChainOp:
+    """A per-batch device op on a lazy stack's chain.
+
+    ``halo`` is the op's spatial support radius in pixels (0 for elementwise
+    ops, the stencil radius for convolutions): with it the op gives the same
+    pixels on a batch cropped ``halo`` pixels beyond what later ops read, so
+    ``project`` may crop before the upload. ``halo=None`` marks an op that
+    needs the whole frame (normalize's per-frame extrema, the projection).
+    Each call is a ``torch.profiler`` span named ``lazy:<name>``.
+    """
+
+    def __init__(self, fn, name: str, halo: Optional[int] = None):
+        self.fn = fn
+        self.name = name
+        self.halo = halo
+
+    def __call__(self, batch: torch.Tensor) -> torch.Tensor:
+        with torch.profiler.record_function(f"lazy:{self.name}"):
+            return self.fn(batch)
 
 
 @ndx.register_dataarray_accessor("frames")
@@ -40,20 +84,35 @@ class Frames(ORCBase):
     def is_projected(self) -> bool:
         return all(coord in self._obj.coords for coord in ["xs", "ys"])
 
-    def _map_device(self, fn, batch: int = 64) -> np.ndarray:
-        """Apply a per-frame device op over the stack in batches; returns a host array."""
-        device = get_device()
+    def _device_batches(self, batch: int):
+        """The stack on the device, ``batch`` frames at a time (a lazy stack's chain batches)."""
         data = self._obj.data
-        n = data.shape[0]
-        outs = []
-        for start in range(0, n, batch):
-            chunk = torch.as_tensor(np.ascontiguousarray(data[start : min(start + batch, n)])).to(device)
-            outs.append(fn(chunk).cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        if isinstance(data, LazyFrames):
+            for _, chunk in data.iter_batches(batch):
+                yield to_device(chunk)
+        else:
+            for start in range(0, data.shape[0], batch):
+                yield to_device(data[start : start + batch])
+
+    def _map_device(self, fn, name: str, batch: int = 64, out_dtype=None, halo: Optional[int] = None):
+        """Apply a per-frame device op over the stack.
+
+        A lazy stack stays lazy: the op joins its chain (see :class:`ChainOp`
+        for ``halo``) and the result has dtype ``out_dtype`` (default: the
+        stack's). An in-memory stack is mapped in device batches and comes
+        back as a host array.
+        """
+        data = self._obj.data
+        if isinstance(data, LazyFrames):
+            return data.with_op(ChainOp(fn, name, halo), dtype=out_dtype)
+        return np.concatenate([to_host(fn(chunk)) for chunk in self._device_batches(batch)], axis=0)
 
     def _whole_on_device(self) -> torch.Tensor:
         """The whole stack on the device, for the ops that reduce or difference over time."""
-        return torch.as_tensor(np.ascontiguousarray(self._obj.data)).to(get_device())
+        data = self._obj.data
+        if isinstance(data, LazyFrames):
+            return torch.cat(list(self._device_batches(64)), dim=0)
+        return to_device(data)
 
     def _with_data(self, data, dims=None, drop_time: int = 0) -> ndx.DataArray:
         """New frames DataArray with the same coords and attrs (optionally the first frames dropped)."""
@@ -85,8 +144,12 @@ class Frames(ORCBase):
         if time_interval == 0:
             raise ValueError(f"Amount of frames is too small to provide {samples} samples")
         sampled = np.asarray(self._obj.data[::time_interval]).astype(np.float32)
-        mean = torch.as_tensor(sampled.mean(axis=0).astype(np.float32)).to(get_device())
-        out = self._map_device(lambda f: flt.normalize_with_mean(f, mean))
+        mean = to_device(sampled.mean(axis=0).astype(np.float32))
+        # each frame's rescale extrema are taken on the device over the whole
+        # frame, so a lazy chain with normalize uploads whole frames (halo
+        # None): at 4K this streams 6x faster than the JAX package's extrema
+        # on the host with a cropped upload (PERF.md §6)
+        out = self._map_device(lambda f: flt.normalize_with_mean(f, mean), "normalize")
         return self._with_data(out)
 
     def edge_detect(self, wdw_1: int = 1, wdw_2: int = 2) -> ndx.DataArray:
@@ -94,17 +157,20 @@ class Frames(ORCBase):
         self._require_gray("edge_detect", "raises in its padding of three axes")
         stride_1 = wdw_1 * 2 + 1
         stride_2 = wdw_2 * 2 + 1
-        out = self._map_device(lambda f: flt.edge_detect(f, stride_1, stride_2), batch=16)
+        out = self._map_device(
+            lambda f: flt.edge_detect(f, stride_1, stride_2), "edge_detect", batch=16, out_dtype=np.float32,
+            halo=max(stride_1, stride_2) // 2,
+        )
         return self._with_data(out)
 
     def minmax(self, min: float = -np.inf, max: float = np.inf) -> ndx.DataArray:
         """Clip intensities to [min, max]; the frames keep their dtype."""
-        out = self._map_device(lambda f: flt.minmax(f, float(min), float(max)).to(f.dtype))
+        out = self._map_device(lambda f: flt.minmax(f, float(min), float(max)).to(f.dtype), "minmax", halo=0)
         return self._with_data(out)
 
     def range(self) -> ndx.DataArray:
         """Temporal intensity range per pixel (no time dimension)."""
-        out = flt.frame_range(self._whole_on_device()).cpu().numpy()
+        out = to_host(flt.frame_range(self._whole_on_device()))
         new = self._with_data(out, dims=tuple(d for d in self._obj.dims if d != "time"))
         new._coords = {k: c for k, c in new._coords.items() if "time" not in c.dims}
         return new
@@ -114,19 +180,21 @@ class Frames(ORCBase):
         self._require_gray("reduce_rolling", "raises in broadcasting its [time, 1, 1] mask")
         if self._obj.shape[0] < samples:
             raise ValueError(f"Amount of frames is smaller than rolling of {samples} samples")
-        out = flt.reduce_rolling(self._whole_on_device(), samples).cpu().numpy()
+        out = to_host(flt.reduce_rolling(self._whole_on_device(), samples))
         return self._with_data(out)
 
     def time_diff(self, thres: float = 0.0, abs: bool = False) -> ndx.DataArray:
         """Frame-to-frame differences above ``thres`` (else 0), float32; one frame fewer, the first time dropped."""
-        out = flt.time_diff(self._whole_on_device(), float(thres), bool(abs)).cpu().numpy()
+        out = to_host(flt.time_diff(self._whole_on_device(), float(thres), bool(abs)))
         return self._with_data(out, drop_time=1)
 
     def smooth(self, wdw: int = 1) -> ndx.DataArray:
         """Gaussian blur with a kernel of ``2 * wdw + 1`` px (OpenCV's kernel for sigma 0), float32."""
         self._require_gray("smooth", "raises in its padding of three axes")
         stride = wdw * 2 + 1
-        out = self._map_device(lambda f: flt.gaussian_blur(f, stride), batch=16)
+        out = self._map_device(
+            lambda f: flt.gaussian_blur(f, stride), "smooth", batch=16, out_dtype=np.float32, halo=stride // 2
+        )
         return self._with_data(out)
 
     # -- projection ------------------------------------------------------------
@@ -144,6 +212,12 @@ class Frames(ORCBase):
         the per-frame work is a gather on the device, band by band for RGB
         frames [time, y, x, rgb]. ``method="cv"`` (the reference's OpenCV
         warp) raises: this package has no OpenCV path.
+
+        On a lazy stack the projection joins the op chain. When every op
+        already on it declares a ``halo``, each decoded batch is cropped on
+        the host to the source box the maps read (padded by the halos) and
+        the maps are rebased onto it: the same pixels out, fewer bytes up.
+        ``PYORC_TPU_NO_UPLOAD_CROP=1`` turns the crop off.
         """
         if method == "cv":
             raise NotImplementedError('project(method="cv") is not supported by pyorc_tpu_torch; use method="numpy".')
@@ -164,9 +238,22 @@ class Frames(ORCBase):
         coords = {"y": y, "x": x}
         z = cc.get_z_a(self.h_a)
         maps = ortho_ops.build_ortho_maps(cc, x, y, z, reducer=reducer)
-        dmaps = ortho_ops.device_maps(maps, get_device())
         is_rgb = "rgb" in self._obj.dims
         src_dtype = self._obj.dtype
+        data = self._obj.data
+        lazy = isinstance(data, LazyFrames)
+        crop = None
+        if lazy and data._crop is None and _upload_crop_on() and all(op.halo is not None for op in data._ops):
+            box = ortho_ops.source_bbox(maps)
+            if box is not None:
+                h, w = maps.shape_in
+                halo = sum(op.halo for op in data._ops)
+                r0, r1 = max(box[0] - halo, 0), min(box[1] + halo, h)
+                c0, c1 = max(box[2] - halo, 0), min(box[3] + halo, w)
+                if (r1 - r0) * (c1 - c0) <= 0.95 * h * w:
+                    maps = ortho_ops.crop_maps(maps, r0, c0, r1 - r0, c1 - c0)
+                    crop = (r0, r1, c0, c1)
+        dmaps = ortho_ops.device_maps(maps, get_device())
 
         def project_chunk(f):
             if is_rgb:
@@ -174,8 +261,18 @@ class Frames(ORCBase):
                 return torch.stack(bands, dim=-1)
             return ortho_ops.project_batch(f, maps, dmaps)
 
-        out = self._map_device(project_chunk, batch=32)
-        out = np.nan_to_num(out).astype(src_dtype)
+        if lazy:
+            if crop is not None:
+                pre_shape = (crop[1] - crop[0], crop[3] - crop[2]) + ((3,) if is_rgb else ())
+                data = data.with_chain(data._ops, frame_shape=pre_shape, crop=crop)
+            out_dtype = torch_dtype(src_dtype)
+            out = data.with_op(
+                ChainOp(lambda f: torch.nan_to_num(project_chunk(f)).to(out_dtype), "project"),
+                frame_shape=(len(y), len(x)) + ((3,) if is_rgb else ()),
+                dtype=src_dtype,
+            )
+        else:
+            out = np.nan_to_num(self._map_device(project_chunk, "project", batch=32)).astype(src_dtype)
         da_proj = ndx.DataArray(
             out,
             dims=("time", "y", "x", "rgb") if is_rgb else ("time", "y", "x"),
@@ -333,20 +430,13 @@ class Frames(ORCBase):
         )
         # the frames go up in their own dtype, batch by batch; only the
         # sampled points become float32, and the STI stays on the device
-        device = get_device()
-        rows_d, cols_d = torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
-        data = self._obj.data
-        batch = 64
-        parts = []
-        for start in range(0, data.shape[0], batch):
-            chunk = torch.as_tensor(np.ascontiguousarray(data[start : start + batch])).to(device)
-            parts.append(stiv_ops.build_sti(chunk, rows_d, cols_d))
-        sti = torch.cat(parts, dim=1)
+        rows_d, cols_d = to_device(rows), to_device(cols)
+        sti = torch.cat([stiv_ops.build_sti(chunk, rows_d, cols_d) for chunk in self._device_batches(64)], dim=1)
         step_px = (length / res) / (n_samples - 1)
         dt = float(np.mean(np.diff(self._obj["time"].values)))
         v, coh = stiv_ops.sti_velocity(sti, step_px, dt, int(window), int(refine))
-        v = v.cpu().numpy() * res  # px/s -> m/s
-        coh = coh.cpu().numpy()
+        v = to_host(v) * res  # px/s -> m/s
+        coh = to_host(coh)
         if min_coherence is not None:
             v = np.where(coh >= min_coherence, v, np.nan)
         dims = ("line", "points") if window and window > 0 else ("line",)

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import to_device
+
 __all__ = [
     "OrthoMaps",
     "build_ortho_maps",
@@ -174,7 +176,7 @@ def device_maps(maps: OrthoMaps, device) -> DeviceMaps:
     """Upload the index maps once; callers reuse the result for every chunk."""
 
     def up(a, dtype=torch.int64):
-        return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return None if a is None else to_device(np.asarray(a), device, dtype)
 
     return DeviceMaps(
         full_idx=up(maps.full_idx),

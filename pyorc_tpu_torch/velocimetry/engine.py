@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import ndx
-from .._device import get_device
+from .._device import get_device, to_device, to_host
+from ..api.video import LazyFrames
 from ..ops import multipass
 from ..ops import piv as piv_ops
 from ..ops import piv_kernels
@@ -88,8 +89,15 @@ def _run_chunk_oom_backoff(fn, chunk, merge=_concat_pairs, min_frames=3):
 def _iter_chunks(data, chunksize):
     """Yield (start_pair_index, frames) with one-frame overlap between chunks.
 
-    ``data`` is an in-memory stack (numpy array or tensor); chunks are views.
+    ``data`` is an in-memory stack (numpy array or tensor; chunks are views)
+    or a lazy video stack, whose chain streams its batches from a prefetch
+    thread, on the device when the chain has ops.
     """
+    if isinstance(data, LazyFrames):
+        for start, batch in data.iter_batches(chunksize, overlap=1):
+            if batch.shape[0] >= 2:
+                yield start, batch
+        return
     n = data.shape[0]
     start = 0
     while start < n - 1:
@@ -156,14 +164,14 @@ def _piv_timestep(
     n_pairs = data.shape[0] - 1
 
     def run_one(chunk):
-        frames = _to_device(chunk, device)
+        frames = to_device(chunk, device)
         if passes > 1:
             out = multipass.piv_multipass(
                 frames, dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold
             )
         else:
             out = piv_kernels.piv_pairs_routed(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
-        return tuple(o.cpu().numpy() for o in out)
+        return tuple(to_host(o) for o in out)
 
     us, vs, cms, s2ns = [], [], [], []
     done = 0
@@ -185,13 +193,6 @@ def _piv_timestep(
     return _assemble_ds(s2n, cmax, u, v, time, y, x, attrs)
 
 
-def _to_device(chunk, device):
-    """A chunk of the stack (numpy array or tensor) on ``device``."""
-    if torch.is_tensor(chunk):
-        return chunk.to(device)
-    return torch.as_tensor(np.ascontiguousarray(chunk)).to(device)
-
-
 def _merge_ensemble(left, right):
     """Ensemble outputs of two consecutive chunks: sums and counts add, per-pair stats join."""
     return (left[0] + right[0], left[1] + right[1], *_concat_pairs(left[2:], right[2:]))
@@ -206,9 +207,9 @@ def _piv_ensemble(
 
     def run_one(chunk):
         cs, cc, cmax, s2n = piv_kernels.piv_ensemble_routed(
-            _to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
+            to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
         )
-        return cs, cc, cmax.cpu().numpy(), s2n.cpu().numpy()
+        return cs, cc, to_host(cmax), to_host(s2n)
 
     # corr_sum and corr_count stay on the device across chunks
     corr_sum, corr_count = 0.0, 0.0
@@ -222,8 +223,8 @@ def _piv_ensemble(
         s2ns.append(s2n)
         done += chunk.shape[0] - 1
         log.info("PIV (ensemble): %d/%d", done, n_pairs_total)
-    corr_sum = corr_sum.cpu().numpy()
-    corr_count = corr_count.cpu().numpy()
+    corr_sum = to_host(corr_sum)
+    corr_count = to_host(corr_count)
     cmax_all = np.concatenate(cms, axis=0)
     s2n_all = np.concatenate(s2ns, axis=0)
     with warnings.catch_warnings():

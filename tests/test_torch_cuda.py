@@ -187,3 +187,20 @@ def test_ensemble_kernel_raises_on_unsupported_geometry(cuda):
         with pytest.raises(ValueError, match="sides of 8-128 px.*ROADMAP.md, queue B"):
             piv_kernels.piv_ensemble_fused(frames, (300, 300), sas, overlap, n_rows, n_cols)
         assert piv_kernels.LAUNCHES["piv_ensemble"] == before
+
+
+def test_copies_are_counted_where_they_happen(cuda):
+    """A tensor already on the card is neither copied nor counted, whether the card is named
+    "cuda" or "cuda:0"; a pinned upload of a strided host view equals it and counts its bytes."""
+    from pyorc_tpu_torch import _device
+
+    host = np.arange(24, dtype=np.uint8).reshape(2, 3, 4)
+    view = host[:, 1:, 1:]
+    before = _device.COPY_BYTES["h2d"]
+    on_card = _device.to_device(host, cuda)
+    assert _device.to_device(on_card, cuda) is on_card
+    assert _device.to_device(on_card, "cuda:0") is on_card
+    up = _device.PinnedUploader(cuda).upload(view)
+    torch.cuda.synchronize()
+    assert torch.equal(up.cpu(), torch.as_tensor(np.ascontiguousarray(view)))
+    assert _device.COPY_BYTES["h2d"] - before == host.nbytes + view.nbytes

@@ -1,5 +1,7 @@
-"""The port runs where the GPU machine runs it: without JAX, the JAX package,
-OpenCV, h5py, tqdm, click, yaml or matplotlib."""
+"""The port runs without JAX, the JAX package, OpenCV, h5py, tqdm, click, yaml
+or matplotlib (the GPU machine lacks h5py and matplotlib, and the port must
+not lean on the others). Without a decoder the lazy frame chain is driven from
+a host frame source, and ``Video`` says that it needs cv2."""
 
 import subprocess
 import sys
@@ -27,9 +29,23 @@ def test_slice_runs_without_jax_and_host_libraries():
         import chip_smoke
         from pyorc_tpu_torch.ops import piv_kernels
 
-        results, _, proj, _ = chip_smoke.slice_phase(480, 640, 12, "cpu")
+        stack = chip_smoke.advected_stack(480, 640, 12, "cpu")
+        results, _, proj, pivs = chip_smoke.slice_phase(480, 640, 12, "cpu", stack=stack)
         assert set(results) == {{16, 26}}, results
         assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+        results, _, rows, _ = chip_smoke.lazy_phase(stack, chip_smoke.nadir_camera_config(480, 640), pivs, "cpu")
+        assert set(results) == {{16, 26}}, results
+        assert all(d == 0.0 for r in results.values() for d in r["max_abs_diff_vs_in_memory"].values()), results
+        assert rows["get_piv[lazy 16px]"]["h2d"] == stack.nbytes, rows
+        probe = chip_smoke.decoder_probe()
+        assert set(probe) == {{"cv2", "native_compiler", "native_decoder", "libnvcuvid", "libavcodec"}}, probe
+        assert probe["cv2"].startswith("absent"), probe
+        try:
+            pyorc_tpu_torch.Video("clip.mp4")
+        except ImportError as err:
+            assert "cv2" in str(err), err
+        else:
+            raise AssertionError("Video opened a file without cv2")
         results, *_ = chip_smoke.multipass_phase(proj[:6], 480, 640)
         assert set(results) == {{32, 26}}, results
         results, _ = chip_smoke.filters_phase(proj, 480, 640, "cpu")
@@ -45,8 +61,18 @@ def test_slice_runs_without_jax_and_host_libraries():
         else:
             raise AssertionError("to_netcdf wrote a file without h5py")
         camera = {{"f": 1000.0, "gcp_px": 60, "aoi_px": 100}}
-        results, *_ = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera)
+        stack = chip_smoke.advected_stack(480, 640, 8, "cpu")
+        results, _, _, piv = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera, stack=stack)
         assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"
+        cc = chip_smoke.nadir_camera_config(480, 640, window_size=chip_smoke.ENS_WINDOW, **camera)
+        results, _, _, lazy_proj = chip_smoke.lazy_phase(
+            stack, cc, {{chip_smoke.ENS_WINDOW: piv}}, "cpu", fps=chip_smoke.ENS_FPS, ensemble=True, aoi_px=100,
+            tag="lazy ens",
+        )
+        assert set(results) == {{chip_smoke.ENS_WINDOW}}, results
+        designs = chip_smoke.upload_designs(stack, "cpu", port=lazy_proj.data, chunk=3, camera=camera)
+        up = {{name: d["uploaded_bytes"] for name, d in designs.items()}}
+        assert up["device_extrema"] == stack.nbytes > up["host_extrema_crop"], up
         leaked = sorted(m for m in sys.modules if m == "pyorc_tpu" or m.startswith("pyorc_tpu."))
         assert not leaked, leaked
         print("SLICE_OK")

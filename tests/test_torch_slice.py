@@ -66,12 +66,14 @@ def test_slice_matches_jax_and_truth(projected, monkeypatch, window_size):
 
 def test_profile_slice_covers_every_stage():
     """The profiled slices (per-pair, multipass, non-square, ensemble, wide
-    ensemble) and the filters and STIV phases report each stage once; on the
-    CPU no device work shows. STIV needs the 12 frames to find its streaks."""
+    ensemble), the lazy chains over both slices' stacks and the filters and
+    STIV phases report each stage once; on the CPU no device work shows. The
+    lazy chains' decode, upload and ops show as spans. STIV needs the 12
+    frames to find its streaks."""
     camera = {"f": 1000.0, "gcp_px": 60, "aoi_px": 100}
     # the ensemble slices at 600x800: the wide ensemble's 128 px windows need a
     # few rows of them along the transect to hold Q to the truth
-    stages = chip_smoke.profile_slice(
+    stages, spans = chip_smoke.profile_slice(
         "cpu", (H_IMG, W_IMG, N_FRAMES), (600, 800, 8), ens_camera=camera, stiv_lines=(2, 3)
     )
     chain = ("get_piv", "mask", "transect_q_flow")
@@ -82,8 +84,11 @@ def test_profile_slice_covers_every_stage():
     } | {f"{name}[64x128px]" for name in chain} | {f"{name}[ens 128px]" for name in chain} | {
         "smooth", "edge_detect", "minmax", "time_diff", "reduce_rolling", "range", "project[rgb]",
         "smooth[stiv]", "get_stiv", "get_stiv[reverse]", "get_stiv[profile]",
-    }
+    } | {"normalize[lazy]", "project[lazy]"} | {
+        f"{name}[lazy {ws + ws % 2}px]" for ws in chip_smoke.SLICE_WINDOWS for name in chain
+    } | {f"{name}[lazy ens]" for name in ("normalize", "project", "get_piv", "mask", "transect_q_flow")}
     assert set(stages) == want
+    assert {"lazy:decode", "lazy:upload", "lazy:normalize", "lazy:project"} <= set(spans), spans
     for row in stages.values():
         assert row["wall_ms"] > 0 and row["device_ms"] == row["copy_ms"] == 0.0 and row["idle"] == 1.0
 
