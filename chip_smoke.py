@@ -48,6 +48,22 @@
    ``pyorc_tpu_torch.Video`` (OpenCV decode) and driven as in step 5b at
    16 px, with the same checks (v_x and v_y may differ from the in-memory
    slice's by a float32 ulp: ``Video``'s times are ``n * 1000 / fps * 0.001``).
+5d. The recipe entry point, on that clip: (a) ``VelocityFlowProcessor(...).process()``
+   in-process with a camera-config JSON, a cross-section GeoJSON with z and
+   ngwerere's recipe shape (normalize -> project -> get_piv(window_size=25) at
+   the default overlap, 26 px at a 14 px step -> a corr mask -> transect with
+   get_q and get_river_flow; no write flags: that machine has no h5py), all
+   written under ``build/``; it must launch the per-pair kernel and meet the
+   26 px velocity and Q bars; each stage's wall is read from the service's own
+   log lines. (b) The same inputs through ``python3 -m pyorc_tpu_torch.cli.main
+   velocimetry ... -h 0.0 --cross ... -vvv build/service_out`` in a child
+   process: exit 0 and every stage logged, its wall printed.
+5e. The optical water level: a 3-frame 1920x1080 FFV1 clip of the Geul
+   fixture's synthetic scene (``tests/test_cross_section.py``; the camera and
+   bathymetry are copied here) through the service's ``get_water_level``: the
+   level within 0.25 m of 92.8 m with s2n above 1.2; the scorer's scores on
+   the card equal to the port's CPU scores on the same mean frame; its device
+   time (CUDA events), candidates and bytes up, and those of the grid search.
 6. Multipass slice: the same projected stack through get_piv(passes=3) at
    window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
@@ -129,6 +145,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
+import os
+import re
 import subprocess
 import sys
 import time
@@ -195,6 +214,63 @@ STIV_LINES = (4, 8)  # line centres, rows x columns of a grid inside the AOI
 STIV_WINDOW = 21  # samples of the profile call's box
 STIV_RTOL = 0.05  # median |v| against the analytic speed
 STIV_COH_MIN = 0.5
+
+# The recipe entry point (step 5d): ngwerere's recipe shape as written, normalize ->
+# project -> get_piv(window_size=25) at get_piv's default overlap (26 px windows at a
+# 14 px step, a grid the JAX package sends to XLA and the CUDA kernel takes) -> a
+# corr mask -> transect with get_q and get_river_flow; no write flags (the card's
+# machine has no h5py)
+SERVICE_WINDOW = 25
+SERVICE_STAGES = ("video", "frames", "velocimetry", "mask", "transect")
+_STAGE_DONE = re.compile(r'stage "(\w+)" done in ([0-9.]+) s')
+
+# The optical water level (step 5e): tests/test_cross_section.py's Geul fixture, its
+# camera and bathymetry copied here (this script imports no test module), and its
+# synthetic scene: bright noisy land, dark water up to GEUL_H
+GEUL_H = 92.8  # m, local datum
+GEUL_TOL = 0.25  # m, the detected level against GEUL_H
+GEUL_S2N_MIN = 1.2  # the detection's signal-to-noise must exceed it
+GEUL_CAMERA = {
+    "height": 1080,
+    "width": 1920,
+    "crs": 28992,
+    "resolution": 0.01,
+    "gcps": {
+        "src": [[158, 314], [418, 245], [655, 162], [948, 98], [1587, 321], [1465, 747]],
+        "dst": [
+            [192102.50255553858, 313157.5882846481, 150.831],
+            [192101.3882378415, 313160.1101843005, 150.717],
+            [192099.77023223988, 313163.2868999007, 150.807],
+            [192096.8922817797, 313169.2557434712, 150.621],
+            [192105.2958125107, 313172.0257530752, 150.616],
+            [192110.35620407888, 313162.5371485311, 150.758],
+        ],
+        "h_ref": 92.45,
+        "z_0": 150.49,
+    },
+    "window_size": 64,
+    "is_nadir": False,
+    "camera_matrix": [[1750.3084716796875, 0.0, 960.0], [0.0, 1750.3084716796875, 540.0], [0.0, 0.0, 1.0]],
+    "dist_coeffs": [[-0.48456448702008914], [0.44089348828121366], [0.0], [0.0], [0.0]],
+    "bbox": (
+        "POLYGON ((192102.55970673775 313154.1397356759, 192098.0727491934 313163.2664060433, "
+        "192108.81475944887 313168.5475153654, 192113.3017169932 313159.420844998, "
+        "192102.55970673775 313154.1397356759))"
+    ),
+}
+GEUL_ZS = [152.754, 152.436, 152.124, 151.65, 151.171, 150.959, 150.689, 150.215, 150.227, 150.204,
+           150.148, 150.181, 150.114, 150.14, 150.096, 150.207, 150.474, 150.684, 150.931, 151.136,
+           151.558, 151.943, 152.711, 153.016]
+GEUL_LON = [5.913483043333334, 5.91350165, 5.913509225, 5.913517873333333, 5.913526728333333,
+            5.913537678333333, 5.913544631666667, 5.913551016666665, 5.91356275, 5.913577963333334,
+            5.913591855, 5.913605991666667, 5.91362158, 5.91362959, 5.913639568333333, 5.913647405,
+            5.913650936666666, 5.91365698, 5.913666071666667, 5.913672016666667, 5.913678495,
+            5.91368494, 5.913693873333334, 5.913725518333333]
+GEUL_LAT = [50.807081403333335, 50.80708851833334, 50.80709163333333, 50.807093645, 50.807096580000014,
+            50.807099555, 50.807102958333346, 50.80710621, 50.80710916, 50.807112763333336,
+            50.80711691833334, 50.807121985, 50.80712629833334, 50.807129086666656, 50.807132803333324,
+            50.80713549666667, 50.807136676666666, 50.807138608333325, 50.80714141666667,
+            50.80714368666667, 50.80714608333333, 50.80714834333333, 50.80715788, 50.807162983333335]
 
 # H100 SXM peaks for the bound: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -822,6 +898,233 @@ def decoder_probe():
             out["libavcodec"] = f"ldconfig -p exited {listed.returncode}: {listed.stderr.strip()[:200]}"
     else:
         out["libavcodec"] = "ldconfig not found"
+    return out
+
+
+def service_inputs(cc, folder, aoi_px=100):
+    """Write the recipe entry point's inputs under ``folder``: the camera config (JSON),
+    a cross-section with z (GeoJSON, :func:`transect_points`) and the recipe (as JSON,
+    which a YAML reader reads). Returns (camera config, cross-section, recipe) paths
+    and the recipe."""
+    folder.mkdir(parents=True, exist_ok=True)
+    fn_cc, fn_cross, fn_recipe = folder / "camera_config.json", folder / "cross_section.geojson", folder / "recipe.yml"
+    cc.to_file(str(fn_cc))
+    points = zip(*transect_points(cc, aoi_px=aoi_px))
+    fn_cross.write_text(json.dumps({"type": "FeatureCollection", "features": [
+        {"type": "Feature", "properties": {}, "geometry": {"type": "Point", "coordinates": [float(v) for v in p]}}
+        for p in points
+    ]}))
+    recipe = {
+        "video": {},
+        "frames": {"normalize": {"samples": 15}, "project": {}},
+        "velocimetry": {"get_piv": {"window_size": SERVICE_WINDOW}},
+        "mask": {"mask_corr": {"corr": {}}},
+        "transect": {"transect_1": {"get_q": {"fill_method": "interpolate"}, "get_river_flow": {}}},
+    }
+    fn_recipe.write_text(json.dumps(recipe, indent=1))
+    return fn_cc, fn_cross, fn_recipe, recipe
+
+
+def _stage_walls(lines):
+    """{stage: seconds} from the service's ``stage "<name>" done in <s> s`` log lines; every
+    stage of SERVICE_STAGES must be there."""
+    walls = {m.group(1): float(m.group(2)) for m in map(_STAGE_DONE.search, lines) if m}
+    missing = [s for s in SERVICE_STAGES if s not in walls]
+    if missing:
+        raise AssertionError(f"the service logged no end of the stages {missing}: {walls}")
+    return walls
+
+
+class _Lines(logging.Handler):
+    """A logging handler that keeps each record's message."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def service_phase(clip, cc, folder, device, aoi_px=100):
+    """Step 5d (a): the recipe entry point in-process, ``VelocityFlowProcessor(...).process()``
+    on ``clip`` (a lossless clip of the advected stack seen by ``cc``) with the inputs of
+    :func:`service_inputs` and ``h_a`` given, as ``-h`` gives it. The velocities (before the
+    mask) and Q are held to the analytic truth (VEL_TOL at 26 px, Q_TOL).
+
+    Returns (the numbers checked, {stage: wall [s]} from the service's own log lines).
+    """
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch.cli import cli_utils
+    from pyorc_tpu_torch.service.velocimetry import VelocityFlowProcessor
+
+    pyorc_tpu_torch.set_device(device)
+    fn_cc, fn_cross, _, recipe = service_inputs(cc, folder, aoi_px)
+    logger = logging.getLogger("chip_smoke.service")
+    logger.setLevel(logging.INFO)
+    handler = _Lines()
+    logger.addHandler(handler)
+    try:
+        proc = VelocityFlowProcessor(
+            recipe=cli_utils.validate_recipe(recipe), videofile=str(clip),
+            cameraconfig=cli_utils.parse_camconfig(None, None, str(fn_cc)), prefix="",
+            output=str(folder / "service_in_process"), h_a=H_A, cross=str(fn_cross), logger=logger,
+        )
+        proc.process()
+    finally:
+        logger.removeHandler(handler)
+    results = check_chain(proc.velocimetry_obj, proc.transects["transect_1"], cc, SERVICE_WINDOW + 1)
+    return results, _stage_walls(handler.lines)
+
+
+def cli_phase(clip, folder, device):
+    """Step 5d (b): ``python3 -m pyorc_tpu_torch.cli.main velocimetry`` on the inputs
+    :func:`service_phase` wrote under ``folder``, output to ``folder / "service_out"``,
+    as a child process (``PYORC_TPU_TORCH_DEVICE`` names ``device`` for it). It must
+    exit 0 and log every stage's end. Returns (wall [s], {stage: wall [s]} from its log)."""
+    out = folder / "service_out"
+    argv = [
+        sys.executable, "-m", "pyorc_tpu_torch.cli.main", "velocimetry", "-V", str(clip),
+        "-c", str(folder / "camera_config.json"), "-r", str(folder / "recipe.yml"), "-h", str(H_A),
+        "--cross", str(folder / "cross_section.geojson"), "-vvv", str(out),
+    ]
+    env = dict(os.environ, PYORC_TPU_TORCH_DEVICE=str(device))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    return wall, _stage_walls((out / "pyorc_tpu.log").read_text().splitlines())
+
+
+def geul_camera_config():
+    """The Geul fixture's camera (GEUL_CAMERA) as the port's ``CameraConfig``."""
+    import copy
+
+    from pyorc_tpu_torch import CameraConfig
+
+    return CameraConfig(**copy.deepcopy(GEUL_CAMERA))
+
+
+def geul_cross_section(cc):
+    """The Geul fixture's bathymetry (24 points, WGS84 -> EPSG:28992) as the port's ``CrossSection``."""
+    from pyorc_tpu_torch import CrossSection
+    from pyorc_tpu_torch.geom import crs as crs_mod
+
+    x, y = crs_mod.transform_points(4326, 28992, np.array(GEUL_LON), np.array(GEUL_LAT))
+    return CrossSection(camera_config=cc, cross_section=[[float(a), float(b), float(c)] for a, b, c in zip(x, y, GEUL_ZS)])
+
+
+def waterline_scene(cs, seed=3, h=GEUL_H):
+    """uint8 camera frame of the cross-section ``cs``'s scene: bright noisy land (N(170, 30)),
+    dark water (N(60, 8)) over the wet part of its camera's bbox at level ``h``. For the Geul
+    fixture with the default seed it is ``tests/test_cross_section.py``'s ``synth_img``, drawn
+    with the port's fill in place of ``cv2.fillPoly``."""
+    from pyorc_tpu_torch.geom import shapes
+
+    cc = cs.camera_config
+    rng = np.random.default_rng(seed)
+    img = np.zeros((cc.height, cc.width), dtype=np.uint8)
+    img[:] = rng.normal(170, 30, size=img.shape).clip(0, 255)
+    for pol in cs.get_bbox_dry_wet(h=h, camera=True).geoms:
+        ring = np.asarray(pol.exterior.coords)[:, :2]
+        ring = ring[np.isfinite(ring).all(axis=1)]
+        if len(ring) >= 3:
+            mask = shapes.fill_polygon(img.shape, np.round(ring).astype(np.int32))
+            noise = rng.normal(60, 8, size=img.shape).clip(0, 255)
+            img = np.where(mask, noise.astype(np.uint8), img)
+    return img
+
+
+def water_level_phase(folder, device, n_frames=3):
+    """Step 5e: the optical water level through the service's ``get_water_level`` on an
+    FFV1 clip (``n_frames`` frames of 1920x1080, :func:`waterline_scene` with seeds 3, 4, ...)
+    opened with ``pyorc_tpu_torch.Video``: the level must lie within GEUL_TOL of GEUL_H
+    with s2n above GEUL_S2N_MIN. Then the scorer alone on the mean frame the detection
+    read, on ``device`` and on the CPU: the scores must be equal (to 1e-12: integer
+    counts through the same float64 host arithmetic). Returns the numbers and times:
+    the scorer's device time (CUDA events around its batches), its bytes up, the
+    number of candidates and polygon slots, and the same for the grid search.
+    """
+    import torch
+
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch._device import COPY_BYTES
+    from pyorc_tpu_torch.ops import waterlevel
+    from pyorc_tpu_torch.service.velocimetry import get_water_level
+
+    pyorc_tpu_torch.set_device(device)
+    cc = geul_camera_config()
+    cs = geul_cross_section(cc)
+    clip = write_clip(np.stack([waterline_scene(cs, seed=3 + i) for i in range(n_frames)]), folder / "geul.avi")
+    video = pyorc_tpu_torch.Video(str(clip), camera_config=cc, progress=False)
+    seen = {}
+    detect = cs.detect_water_level_s2n
+
+    def recorded(img, **kwargs):
+        seen["img"] = img
+        seen["level"], seen["s2n"] = detect(img, **kwargs)
+        return seen["level"], seen["s2n"]
+
+    cs.detect_water_level_s2n = recorded
+    t0 = time.perf_counter()
+    level = get_water_level(video, cs, n_start=0, n_end=n_frames, s2n_thres=GEUL_S2N_MIN)
+    out = {"get_water_level_s": time.perf_counter() - t0, "level": level, "s2n": seen["s2n"]}
+    if level is None or abs(level - GEUL_H) >= GEUL_TOL:
+        raise AssertionError(f"optical water level {seen['level']} (s2n {seen['s2n']}) vs {GEUL_H} m")
+    img = seen["img"]
+
+    counts = waterlevel._counts
+    cuda = torch.device(device).type == "cuda"
+
+    def scorer(run):
+        """run() with the scorer's batches timed by CUDA events and its uploads counted."""
+        events, slots = [], []
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True) if cuda else None
+            if cuda:
+                start.record()
+            result = counts(*args)
+            slots.append(args[2].shape[0])
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                events.append((start, end))
+            return result
+
+        waterlevel._counts = timed
+        h2d = COPY_BYTES["h2d"]
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            result = run()
+        finally:
+            waterlevel._counts = counts
+        if cuda:
+            torch.cuda.synchronize()
+        stats = {
+            "wall_s": time.perf_counter() - t0, "slots": int(sum(slots)), "batches": len(slots),
+            "device_ms": sum(a.elapsed_time(b) for a, b in events) if cuda else "not measured",
+            "h2d_bytes": COPY_BYTES["h2d"] - h2d,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base if cuda else "not measured",
+        }
+        # the batch budget holds: temporaries within BATCH_BYTES beside the padded frame
+        if cuda and stats["peak_bytes"] > waterlevel.BATCH_BYTES + stats["h2d_bytes"]:
+            raise AssertionError(f"water-level scorer peaked at {stats['peak_bytes']} B of device memory, "
+                                 f"over BATCH_BYTES {waterlevel.BATCH_BYTES} + {stats['h2d_bytes']} B up")
+        return result, stats
+
+    (l_range, _, scores), out["s2n_scorer"] = scorer(lambda: cs._water_level_score_range(img))
+    out["s2n_scorer"]["candidates"] = len(l_range)
+    cpu_scores = _on_cpu(device, lambda: cs._water_level_score_range(img)[2])
+    out["max_abs_diff_vs_cpu"] = float(np.max(np.abs(np.asarray(scores) - np.asarray(cpu_scores))))
+    if out["max_abs_diff_vs_cpu"] > 1e-12:
+        raise AssertionError(f"water-level scores on {device} differ from the CPU's by {out['max_abs_diff_vs_cpu']}")
+    out["grid_level"], out["grid_scorer"] = scorer(lambda: cs.detect_water_level(img, method="grid"))
     return out
 
 
@@ -1603,7 +1906,7 @@ def main(argv) -> int:
     print(f"lazy chain 1920x1080x126 from a host frame source: wall {wall:.3f} s; {lazy_launches} launches; "
           "stages " + json.dumps(lazy_rows))
     print("lazy chain results " + json.dumps(lazy_results), flush=True)
-    video_launches = 0
+    video_launches = service_launches = 0
     if probe.get("cv2_video_io") == "FFV1 round trip exact":
         clip = write_clip(stack, ROOT / "build" / "smoke_1080p.avi")
         t0 = time.perf_counter()
@@ -1613,13 +1916,31 @@ def main(argv) -> int:
                                video_file=clip),
         )
         wall = time.perf_counter() - t0
-        clip.unlink()
         print(f"video chain: pyorc_tpu_torch.Video on a lossless FFV1 clip of that stack (OpenCV decode): wall "
               f"{wall:.3f} s; {video_launches} launches; stages " + json.dumps(video_rows))
         print("video chain results " + json.dumps(video_results), flush=True)
+
+        t0 = time.perf_counter()
+        (svc_results, svc_walls), service_launches = _drive(
+            piv_kernels, "piv_pairs",
+            lambda: service_phase(clip, nadir_camera_config(1080, 1920), ROOT / "build", device),
+        )
+        wall = time.perf_counter() - t0
+        print(f"service in-process on that clip (normalize -> project -> get_piv({SERVICE_WINDOW}) at the default "
+              f"overlap -> corr mask -> transect, get_q, get_river_flow): wall {wall:.3f} s; {service_launches} "
+              "launches; stage walls [s] from its log " + json.dumps(svc_walls))
+        print("service results " + json.dumps(svc_results), flush=True)
+        cli_wall, cli_walls = cli_phase(clip, ROOT / "build", device)
+        print(f"CLI (python3 -m pyorc_tpu_torch.cli.main velocimetry ... build/service_out) on that clip: exit 0, "
+              f"wall {cli_wall:.3f} s; stage walls [s] from its log " + json.dumps(cli_walls), flush=True)
+        clip.unlink()
+        wl = water_level_phase(ROOT / "build", device)
+        print("optical water level on a 1920x1080 FFV1 clip of the Geul scene (service.get_water_level): "
+              + json.dumps(wl), flush=True)
     else:
         why = probe.get("cv2_video_io", probe["cv2"])
-        print(f"video chain not run: OpenCV cannot round-trip a lossless clip here ({why})")
+        print(f"video chain, service, CLI and optical water level not run: OpenCV cannot round-trip a lossless "
+              f"clip here ({why})")
     del pivs, stack
 
     t0 = time.perf_counter()
@@ -1715,7 +2036,7 @@ def main(argv) -> int:
         {
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
             "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
-            "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches,
+            "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches + service_launches,
             "max_abs_err": max(
                 e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), *mp_main.values(), ns_main]
             ),
@@ -1726,7 +2047,7 @@ def main(argv) -> int:
             "bound_ms_128px": coarse["bound_ms"], "bound_by_128px": coarse["bound_by"],
             f"launches_{ns}px": ns_launches, f"ms_{ns}px": ns_main["ms"], f"plain_ms_{ns}px": ns_main["plain_ms"],
             f"bound_ms_{ns}px": ns_main["bound_ms"], f"bound_by_{ns}px": ns_main["bound_by"],
-            "launches_lazy": lazy_launches, "launches_video": video_launches,
+            "launches_lazy": lazy_launches, "launches_video": video_launches, "launches_service": service_launches,
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",

@@ -18,6 +18,7 @@ from ._device import get_device, set_device
 from .ndx import DataArray, Dataset, open_dataset
 from . import api as _api  # registers .frames/.velocimetry/.transect accessors  # noqa: E402
 from .api.cameraconfig import CameraConfig, get_camera_config, load_camera_config  # noqa: E402
+from .api.cross_section import CrossSection  # noqa: E402
 from .api.video import LazyFrames, Video  # noqa: E402
 
 __all__ = [
@@ -26,6 +27,7 @@ __all__ = [
     "ndx",
     "open_dataset",
     "CameraConfig",
+    "CrossSection",
     "get_camera_config",
     "load_camera_config",
     "LazyFrames",

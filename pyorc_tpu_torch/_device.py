@@ -2,7 +2,9 @@
 
 Every op of the port runs on the device returned by :func:`get_device`.
 The default is ``"cuda"``; running on the CPU takes an explicit
-``set_device("cpu")``, so nothing quietly carries on without the card.
+``set_device("cpu")``, or, for a process that cannot call it (the CLI in a
+child process), the environment variable ``PYORC_TPU_TORCH_DEVICE=cpu``. So
+nothing quietly carries on without the card.
 
 Frames, index maps and results cross between host and device through
 :func:`to_device`, :func:`to_host` and :class:`PinnedUploader`, which add the
@@ -11,6 +13,7 @@ bytes they move to :data:`COPY_BYTES`.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional, Union
 
@@ -36,12 +39,23 @@ def set_device(device: Union[str, torch.device]) -> None:
 
 
 def get_device() -> torch.device:
-    """The selected device; raises when it is a CUDA device and CUDA is absent."""
-    device = _device if _device is not None else torch.device("cuda")
+    """The selected device; raises when it is a CUDA device and CUDA is absent.
+
+    Without :func:`set_device`, the device is ``PYORC_TPU_TORCH_DEVICE`` when
+    it is set (a string ``torch.device`` takes; anything else raises), else
+    ``"cuda"``.
+    """
+    device = _device
+    if device is None:
+        name = os.environ.get("PYORC_TPU_TORCH_DEVICE") or "cuda"
+        try:
+            device = torch.device(name)
+        except RuntimeError as err:
+            raise ValueError(f"PYORC_TPU_TORCH_DEVICE={name!r} is not a torch device: {err}") from err
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "pyorc_tpu_torch computes on CUDA by default, but torch.cuda.is_available() is False. "
-            "Call pyorc_tpu_torch.set_device('cpu') to run on the CPU."
+            "Call pyorc_tpu_torch.set_device('cpu'), or set PYORC_TPU_TORCH_DEVICE=cpu, to run on the CPU."
         )
     return device
 

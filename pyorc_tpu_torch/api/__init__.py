@@ -1,4 +1,4 @@
-"""Public object/accessor API: CameraConfig + ndx accessors."""
+"""Public object/accessor API: CameraConfig, CrossSection + ndx accessors."""
 
 from .cameraconfig import CameraConfig, get_camera_config, load_camera_config
 
@@ -6,5 +6,6 @@ from .cameraconfig import CameraConfig, get_camera_config, load_camera_config
 from . import frames as _frames  # noqa: F401, E402
 from . import transect as _transect  # noqa: F401, E402
 from . import velocimetry as _velocimetry  # noqa: F401, E402
+from .cross_section import CrossSection  # noqa: E402
 
-__all__ = ["CameraConfig", "get_camera_config", "load_camera_config"]
+__all__ = ["CameraConfig", "CrossSection", "get_camera_config", "load_camera_config"]

@@ -256,11 +256,17 @@ class CameraConfig:
         **kwargs,
     ):
         """Calibrate camera_matrix/dist_coeffs from a chessboard video (Zhang's method)."""
-        raise NotImplementedError(
-            "Chessboard lens calibration (the JAX package's io/calibration.py) is not ported to "
-            "pyorc_tpu_torch yet; video decoding is (pyorc_tpu_torch.Video). ROADMAP.md, queue A, "
-            "lens calibration."
+        import os
+
+        from ..io.calibration import calibrate_camera
+
+        if not os.path.isfile(fn):
+            raise FileNotFoundError(f"Video calibration file {fn} not found")
+        camera_matrix, dist_coeffs = calibrate_camera(
+            fn, chessboard_size, max_imgs, plot=plot, progress_bar=progress_bar, **kwargs
         )
+        self.camera_matrix = camera_matrix
+        self.dist_coeffs = dist_coeffs
 
     def estimate_lens_position(self):
         """Lens (camera centre) position in world coordinates from pose."""

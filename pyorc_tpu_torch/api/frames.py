@@ -164,8 +164,10 @@ class Frames(ORCBase):
         return self._with_data(out)
 
     def minmax(self, min: float = -np.inf, max: float = np.inf) -> ndx.DataArray:
-        """Clip intensities to [min, max]; the frames keep their dtype."""
-        out = self._map_device(lambda f: flt.minmax(f, float(min), float(max)).to(f.dtype), "minmax", halo=0)
+        """Clip intensities to [min, max]; the frames keep their dtype (bounds outside it saturate)."""
+        out = self._map_device(
+            lambda f: flt.saturating_cast(flt.minmax(f, float(min), float(max)), f.dtype), "minmax", halo=0
+        )
         return self._with_data(out)
 
     def range(self) -> ndx.DataArray:

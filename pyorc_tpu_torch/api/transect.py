@@ -24,7 +24,15 @@ class Transect(ORCBase):
     def cross_section(self):
         if "zcoords" not in self._obj.coords:
             return None
-        raise NotImplementedError("CrossSection is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A).")
+        from .cross_section import CrossSection
+
+        coords = [
+            [float(_x), float(_y), float(_z)]
+            for _x, _y, _z in zip(
+                self._obj["xcoords"].values, self._obj["ycoords"].values, self._obj["zcoords"].values
+            )
+        ]
+        return CrossSection(camera_config=self.camera_config, cross_section=coords)
 
     @property
     def wetted_surface_polygon(self):

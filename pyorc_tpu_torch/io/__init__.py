@@ -1,4 +1,4 @@
-"""IO backends: netCDF-4 over h5py, and video decode (the native FFmpeg pump, OpenCV)."""
+"""IO backends: netCDF-4 over h5py, video decode (the native FFmpeg pump, OpenCV), chessboard lens calibration."""
 
 from .netcdf import read_netcdf, write_netcdf
 

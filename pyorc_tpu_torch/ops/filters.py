@@ -23,6 +23,7 @@ __all__ = [
     "normalize_with_stats",
     "time_diff",
     "minmax",
+    "saturating_cast",
     "frame_range",
     "reduce_rolling",
 ]
@@ -121,6 +122,15 @@ def minmax(frames: torch.Tensor, min: float = -np.inf, max: float = np.inf) -> t
     lo = torch.tensor(min, dtype=torch.float32, device=f.device)
     hi = torch.tensor(max, dtype=torch.float32, device=f.device)
     return torch.maximum(torch.minimum(f, hi), lo)
+
+
+def saturating_cast(frames: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``frames`` cast to ``dtype``; to an integer dtype out-of-range values saturate
+    and NaN becomes 0, as XLA converts (a plain ``.to`` wraps: 300.0 -> 44 in uint8)."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        return frames.to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.nan_to_num(frames, nan=0.0).clamp(info.min, info.max).to(dtype)
 
 
 def frame_range(frames: torch.Tensor) -> torch.Tensor:

@@ -260,6 +260,37 @@ def test_rgb_shape_agnostic_filters_match_jax(rgb_stacks, method, kwargs):
 
 
 @pytest.mark.parametrize(
+    "bounds", [{"min": 300}, {"max": -5}, {"min": 300, "max": 400}, {"min": -5, "max": 300}, {"min": 10.7, "max": 200.2}],
+    ids=["min-300", "max--5", "both-above", "both-outside", "fractional"],
+)
+def test_minmax_bounds_outside_the_dtype_follow_jax(stacks, bounds):
+    """``minmax`` on uint8 frames with bounds outside 0-255 saturates as the JAX package's
+    cast does (min=300 gives 255, max=-5 gives 0); a plain cast would wrap (300 -> 44).
+    In memory and on the lazy chain's device batches alike."""
+    da_t, da_j = stacks["uint8"][:2]
+    got = da_t.frames.minmax(**bounds)
+    _hold_frames(got, da_j.frames.minmax(**bounds))
+    if "min" in bounds and bounds["min"] >= 255:
+        assert (got.values == 255).all()
+    lazy = chip_smoke.lazy_dataarray(chip_smoke.HostFrameSource(da_t.values), stacks["uint8"][2], chip_smoke.FPS)
+    np.testing.assert_array_equal(lazy.frames.minmax(**bounds).frames.project().values, got.frames.project().values)
+
+
+@pytest.mark.parametrize("nan_at", ["one-frame", "every-frame", "none"])
+def test_range_with_nan_follows_jax(stacks, nan_at):
+    """``range`` on float frames with NaN: a pixel with NaN in any frame reads NaN, as in the JAX package."""
+    da_t, da_j = stacks["float32"][:2]
+    values = da_t.values.copy()
+    if nan_at == "one-frame":
+        values[2, 10, 20] = np.nan
+    elif nan_at == "every-frame":
+        values[:, 30, 40] = np.nan
+    got = da_t._replace(values).frames.range()
+    _hold_frames(got, da_j._replace(values).frames.range())
+    assert np.isnan(got.values).sum() == (0 if nan_at == "none" else 1)
+
+
+@pytest.mark.parametrize(
     "method,kwargs,jax_raises",
     [
         ("smooth", {}, "pad_width"),

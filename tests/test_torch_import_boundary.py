@@ -85,6 +85,75 @@ def test_slice_runs_without_jax_and_host_libraries():
     assert "SLICE_OK" in proc.stdout
 
 
+def _run_without(absent, body):
+    """Run ``body`` in a child interpreter with the modules ``absent`` blocked; it must print OK."""
+    script = f"import sys\nfor name in {tuple(absent)!r}:\n    sys.modules[name] = None\n" + textwrap.dedent(body)
+    script += "\nleaked = sorted(m for m in sys.modules if m == 'pyorc_tpu' or m.startswith('pyorc_tpu.'))"
+    script += "\nassert not leaked, leaked\nprint('OK')\n"
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def test_cross_section_and_scorer_run_without_host_libraries():
+    """``api.cross_section`` and ``ops.waterlevel`` need none of ABSENT: the Geul scene's
+    water level on the CPU, and the per-candidate host score (the port's polygon fill)."""
+    _run_without(ABSENT, """
+        import torch
+        torch.set_num_threads(2)
+        import pyorc_tpu_torch
+        from pyorc_tpu_torch.api import cross_section
+        from pyorc_tpu_torch.ops import waterlevel
+        import chip_smoke
+
+        pyorc_tpu_torch.set_device("cpu")
+        cs = chip_smoke.geul_cross_section(chip_smoke.geul_camera_config())
+        img = chip_smoke.waterline_scene(cs)
+        h, s2n = cs.detect_water_level_s2n(img, dz_max=0.1, ds_max=1.0)
+        assert abs(h - chip_smoke.GEUL_H) < chip_smoke.GEUL_TOL and s2n > chip_smoke.GEUL_S2N_MIN, (h, s2n)
+        assert cs.get_histogram_score([6.0], img) < 2.0
+    """)
+
+
+def test_service_and_cli_import_without_jax_and_host_libraries():
+    """The service and the CLI import click and yaml (as the JAX package does) and none of
+    jax, cv2, h5py, matplotlib or tqdm."""
+    _run_without(("jax", "jaxlib", "cv2", "h5py", "matplotlib", "tqdm"), """
+        import pyorc_tpu_torch.service
+        import pyorc_tpu_torch.cli.main
+        from pyorc_tpu_torch.service.velocimetry import VelocityFlowProcessor, get_water_level
+    """)
+
+
+def test_chip_smoke_service_step_without_jax(tmp_path):
+    """chip_smoke's service step (steps 5d and 5e) at a small size on the CPU, without jax,
+    h5py or matplotlib (the card's machine has neither of the last two): the service
+    in-process on a 480x640, 12-frame clip, the CLI as a child process, and the optical
+    water level on the 1920x1080 Geul scene with the scorer's CPU result held to itself."""
+    _run_without(("jax", "jaxlib", "h5py", "matplotlib"), f"""
+        import json
+        from pathlib import Path
+        import torch
+        torch.set_num_threads(2)
+        import chip_smoke
+        from pyorc_tpu_torch.ops import piv_kernels
+
+        folder = Path({str(tmp_path)!r})
+        stack = chip_smoke.advected_stack(480, 640, 12, "cpu")
+        clip = chip_smoke.write_clip(stack, folder / "clip.avi")
+        results, walls = chip_smoke.service_phase(clip, chip_smoke.nadir_camera_config(480, 640), folder, "cpu")
+        assert set(walls) == set(chip_smoke.SERVICE_STAGES), walls
+        assert piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] == "plain_cpu"
+        wall, walls = chip_smoke.cli_phase(clip, folder, "cpu")
+        assert set(walls) == set(chip_smoke.SERVICE_STAGES), walls
+        assert sorted(p.name for p in (folder / "service_out").iterdir()) == [".pyorc", "pyorc_tpu.log"]
+        wl = chip_smoke.water_level_phase(folder, "cpu")
+        assert abs(wl["level"] - chip_smoke.GEUL_H) < chip_smoke.GEUL_TOL and wl["s2n"] > chip_smoke.GEUL_S2N_MIN, wl
+        assert wl["max_abs_diff_vs_cpu"] == 0.0 and wl["s2n_scorer"]["candidates"] > 100, wl
+        assert wl["s2n_scorer"]["device_ms"] == "not measured", wl
+        json.dumps(wl)
+    """)
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     """Source check: no module of the port, and not chip_smoke.py, imports jax or pyorc_tpu."""
     offenders = []
@@ -105,6 +174,26 @@ def test_device_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="set_device"):
         pyorc_tpu_torch.get_device()
     pyorc_tpu_torch.set_device("cpu")
+    assert pyorc_tpu_torch.get_device().type == "cpu"
+
+
+def test_device_from_the_environment(monkeypatch):
+    """Without set_device, PYORC_TPU_TORCH_DEVICE names the device (the CLI's child process
+    reads it); unset it is still "cuda" and refused without a card; a bad name raises."""
+    monkeypatch.setattr(_device, "_device", None)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    monkeypatch.delenv("PYORC_TPU_TORCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="PYORC_TPU_TORCH_DEVICE=cpu"):
+        pyorc_tpu_torch.get_device()
+    monkeypatch.setenv("PYORC_TPU_TORCH_DEVICE", "cuda:0")
+    with pytest.raises(RuntimeError, match="set_device"):
+        pyorc_tpu_torch.get_device()
+    monkeypatch.setenv("PYORC_TPU_TORCH_DEVICE", "cpu")
+    assert pyorc_tpu_torch.get_device().type == "cpu"
+    monkeypatch.setenv("PYORC_TPU_TORCH_DEVICE", "gpu0")
+    with pytest.raises(ValueError, match="gpu0"):
+        pyorc_tpu_torch.get_device()
+    pyorc_tpu_torch.set_device("cpu")  # set_device wins over the environment
     assert pyorc_tpu_torch.get_device().type == "cpu"
 
 
