@@ -58,6 +58,19 @@
    log lines. (b) The same inputs through ``python3 -m pyorc_tpu_torch.cli.main
    velocimetry ... -h 0.0 --cross ... -vvv build/service_out`` in a child
    process: exit 0 and every stage logged, its wall printed.
+5f. The recipe's outputs, on that clip before it is removed: the service in-process
+   with step 5d's recipe plus ``frames.to_video`` (``video_format="FFV1"``, an .avi)
+   and ``frames.to_geotiff`` (frame 0). It must launch the per-pair kernel and meet
+   step 5d's bars; the uint8 frames handed to the video writer, and where the writer
+   is OpenCV's lossless FFV1 the decoded file too, must equal the frames the port
+   gives on the CPU for the same stack (``outputs_reference``); every frame goes up
+   once and only uint8 frames (1 B a projected pixel) come down; the GeoTIFF must be
+   the CPU's file, byte for byte. Then ``cli_utils.parse_geotiff`` on the clip's first
+   frame as RGB (nearest) on the card and on the CPU (byte-equal files), and
+   ``to_ugrid`` of the masked result (arrays equal to the CPU's). Each new stage's
+   wall and bytes, and the writer chosen, are printed; one line from
+   ``importlib.util.find_spec`` says which outputs need matplotlib or h5py and are
+   held on the CPU only.
 5e. The optical water level: a 3-frame 1920x1080 FFV1 clip of the Geul
    fixture's synthetic scene (``tests/test_cross_section.py``; the camera and
    bathymetry are copied here) through the service's ``get_water_level``: the
@@ -997,6 +1010,225 @@ def cli_phase(clip, folder, device):
     return wall, _stage_walls((out / "pyorc_tpu.log").read_text().splitlines())
 
 
+def outputs_reference(stack, cc, folder, samples=15, batch=16):
+    """The frames the port gives on the CPU for the outputs of step 5f: ``stack`` (the host
+    uint8 frames of the clip) through normalize(``samples``) -> project on the CPU, as a lazy
+    chain over a :class:`HostFrameSource`. Returns the (start, uint8 video frames) of each
+    batch, and writes frame 0 with the CPU's ``to_geotiff`` to ``folder /
+    "reference_frame_0000.tif"``. Needs neither cv2 nor a card."""
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch.ops import filters as flt
+
+    previous = pyorc_tpu_torch.get_device()
+    pyorc_tpu_torch.set_device("cpu")
+    try:
+        proj = lazy_dataarray(HostFrameSource(stack), cc).frames.normalize(samples=samples).frames.project()
+        out = [(start, flt.video_uint8(chunk).numpy()) for start, chunk in proj.data.iter_batches(batch)]
+        proj.frames.to_geotiff(folder / "reference_frame_0000.tif", frame=0)
+    finally:
+        pyorc_tpu_torch.set_device(previous)
+    return out
+
+
+def hold_video_frames(read_frames, reference):
+    """Hold the frames ``read_frames`` yields (a decoded video, uint8 [h, w] each) to the
+    ``(start, batch)`` pairs of ``reference``, exactly. Returns the number of frames."""
+    n = 0
+    frames = iter(read_frames)
+    for start, batch in reference:
+        for k, want in enumerate(batch):
+            got = next(frames, None)
+            if got is None:
+                raise AssertionError(f"the video ends after {n} frames; the reference has frame {start + k}")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = int((got != want).sum()) if got.shape == want.shape else f"shape {got.shape} != {want.shape}"
+                raise AssertionError(f"video frame {start + k} differs from the CPU's: {bad}")
+            n += 1
+    if next(frames, None) is not None:
+        raise AssertionError(f"the video holds more than the reference's {n} frames")
+    return n
+
+
+def hold_geotiff(got_fn, want_fn):
+    """Byte-equal GeoTIFFs: the uint8 frames of normalize -> project are exact on the card (the
+    filters phase's bar for them). Returns "byte-equal"."""
+    got, want = Path(got_fn).read_bytes(), Path(want_fn).read_bytes()
+    if got != want:
+        diff = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+        raise AssertionError(f"{got_fn} differs from the CPU's {want_fn} in {diff} bytes")
+    return "byte-equal"
+
+
+def ugrid_arrays_equal(ds, device):
+    """``to_ugrid`` of ``ds`` on ``device`` and on the CPU: every array, its dims and attributes equal
+    (the global attributes but ``date_created`` and ``history``). Returns (wall [s], bytes moved,
+    the [time, faces] shape of ``mesh2d_ucx``)."""
+    from pyorc_tpu_torch._device import COPY_BYTES
+
+    before = dict(COPY_BYTES)
+    t0 = time.perf_counter()
+    got = ds.velocimetry.to_ugrid()
+    wall = time.perf_counter() - t0
+    moved = {k: COPY_BYTES[k] - before[k] for k in before}
+    want = _on_cpu(device, lambda: ds.velocimetry.to_ugrid())
+    names = list(want.data_vars) + list(want.coords)
+    if set(got.data_vars) != set(want.data_vars) or set(got.coords) != set(want.coords):
+        raise AssertionError("to_ugrid: different variables on the card and on the CPU")
+    for k in names:
+        a, b = np.asarray(got[k].values), np.asarray(want[k].values)
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"to_ugrid: {k} differs between the card and the CPU")
+    stamps = ("date_created", "history")
+    if {k: v for k, v in got.attrs.items() if k not in stamps} != {k: v for k, v in want.attrs.items() if k not in stamps}:
+        raise AssertionError("to_ugrid: global attributes differ")
+    if got["mesh2d_ucx"].shape[1] != ds.sizes["y"] * ds.sizes["x"]:
+        raise AssertionError(f"to_ugrid: {got['mesh2d_ucx'].shape} faces for a {ds.sizes['y']}x{ds.sizes['x']} grid")
+    return wall, moved, list(got["mesh2d_ucx"].shape)
+
+
+def host_only_outputs():
+    """One line: the outputs that need matplotlib or h5py, and whether this machine has them
+    (``importlib.util.find_spec``)."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "h5py")}
+    state = ", ".join(f"{m} {'present' if ok else 'absent'}" for m, ok in have.items())
+    return (f"outputs held on the CPU only ({state} here): the plot stage, Frames.to_ani and the camera-config "
+            "selectors need matplotlib, the UGRID file (to_netcdf) needs h5py; tests/test_torch_plot.py, "
+            "test_torch_exports.py, test_torch_cli_elements.py and test_torch_service.py hold them against JAX")
+
+
+def outputs_phase(clip, stack, cc, folder, device, aoi_px=100):
+    """Step 5f, the recipe's outputs, on ``clip`` (the lossless clip of ``stack``): the service
+    in-process with step 5d's inputs plus ``frames.to_video`` (FFV1 in an .avi) and
+    ``frames.to_geotiff`` (frame 0). It must meet step 5d's bars; the video must decode to the
+    uint8 frames the port gives on the CPU (:func:`outputs_reference`), every frame uploaded
+    once and only uint8 frames downloaded; the GeoTIFF must be the CPU's file. Then
+    ``parse_geotiff`` (the clip's first frame as RGB, nearest) against its CPU file, and
+    ``to_ugrid`` of the masked result against the CPU's arrays.
+
+    Returns (the numbers checked, per new stage {wall_s, h2d, d2h, ...; for to_video the
+    writer chosen and the seconds spent in its ``write``}, {stage: wall [s]} from the
+    service's log)."""
+    import cv2
+    import torch
+    from unittest import mock
+
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch import _device
+    from pyorc_tpu_torch.api import frames as frames_mod
+    from pyorc_tpu_torch.api.frames import Frames
+    from pyorc_tpu_torch.cli import cli_utils
+    from pyorc_tpu_torch.service.velocimetry import VelocityFlowProcessor
+
+    pyorc_tpu_torch.set_device(device)
+    out_dir = folder / "outputs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fn_cc, fn_cross, _, recipe = service_inputs(cc, folder, aoi_px)
+    fn_video = out_dir / "processed_frames.avi"
+    recipe["frames"]["to_video"] = {"fn": str(fn_video), "video_format": "FFV1"}
+    recipe["frames"]["to_geotiff"] = {"frame": 0}
+    rows, written, write_s = {}, [], [0.0]
+    make_writer = frames_mod._video_writer
+
+    def recording_writer(*args, **kwargs):
+        writer = make_writer(*args, **kwargs)
+        write = writer.write
+
+        def record(frame):
+            written.append(np.array(frame))
+            t0 = time.perf_counter()
+            write(frame)
+            write_s[0] += time.perf_counter() - t0
+
+        writer.write = record
+        return writer
+
+    def measured(name, method):
+        def run(*args, **kwargs):
+            before = dict(_device.COPY_BYTES)
+            t0 = time.perf_counter()
+            out = method(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            rows[name] = {"wall_s": time.perf_counter() - t0,
+                          **{k: _device.COPY_BYTES[k] - before[k] for k in before}}
+            return out
+
+        return run
+
+    logger = logging.getLogger("chip_smoke.outputs")
+    logger.setLevel(logging.INFO)
+    frames_log = logging.getLogger("pyorc_tpu_torch.api.frames")
+    frames_log.setLevel(logging.INFO)
+    handler, writer_lines = _Lines(), _Lines()
+    logger.addHandler(handler)
+    frames_log.addHandler(writer_lines)
+    try:
+        with mock.patch.object(Frames, "to_video", measured("to_video", Frames.to_video)), \
+                mock.patch.object(Frames, "to_geotiff", measured("to_geotiff", Frames.to_geotiff)), \
+                mock.patch.object(frames_mod, "_video_writer", recording_writer):
+            proc = VelocityFlowProcessor(
+                recipe=cli_utils.validate_recipe(recipe), videofile=str(clip),
+                cameraconfig=cli_utils.parse_camconfig(None, None, str(fn_cc)), prefix="",
+                output=str(out_dir), h_a=H_A, cross=str(fn_cross), logger=logger,
+            )
+            proc.process()
+    finally:
+        logger.removeHandler(handler)
+        frames_log.removeHandler(writer_lines)
+    results = check_chain(proc.velocimetry_obj, proc.transects["transect_1"], cc, SERVICE_WINDOW + 1)
+    n, out_h, out_w = proc.da_frames.shape
+    video = rows["to_video"]
+    video["writer"] = next((line for line in writer_lines.lines if line.startswith("to_video:")), "not logged")
+    video["writer_write_s"] = write_s[0]  # the host encoder's share of the wall
+    if video["h2d"] != stack.nbytes or video["d2h"] != n * out_h * out_w:
+        raise AssertionError(f"to_video moved {video['h2d']} B up and {video['d2h']} B down; each of the {n} frames "
+                             f"up once is {stack.nbytes} B, their uint8 frames down {n * out_h * out_w} B")
+    video["bytes_per_projected_pixel_down"] = video["d2h"] / (n * out_h * out_w)
+
+    def decoded():
+        cap = cv2.VideoCapture(str(fn_video))
+        try:
+            while True:
+                ok, img = cap.read()
+                if not ok:
+                    return
+                yield cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        finally:
+            cap.release()
+
+    reference = outputs_reference(stack, cc, folder)
+    results["written_frames"] = hold_video_frames(written, reference)
+    if results["written_frames"] != n:
+        raise AssertionError(f"to_video wrote {results['written_frames']} of {n} frames")
+    if "cv2.VideoWriter, fourcc 'FFV1'" in video["writer"]:  # lossless: the file decodes to the same bytes
+        results["video_frames"] = hold_video_frames(decoded(), reference)
+    else:  # the native H.264 writer is lossy: the frames handed to it are what is held
+        results["video_frames"] = f"not decoded: {video['writer']}"
+    results["geotiff"] = hold_geotiff(out_dir / "frame_0000.tif", folder / "reference_frame_0000.tif")
+
+    sample = {}
+    for dev in (device, "cpu"):
+        fn = out_dir / f"sample_rgb_{dev}.tif"
+        before = dict(_device.COPY_BYTES)
+        t0 = time.perf_counter()
+        pyorc_tpu_torch.set_device(dev)
+        try:
+            cli_utils.parse_geotiff(str(clip), str(fn_cc), str(fn), frame_sample=0, logger=logger)
+        finally:
+            pyorc_tpu_torch.set_device(device)
+        sample[dev] = {"wall_s": time.perf_counter() - t0, **{k: _device.COPY_BYTES[k] - before[k] for k in before}}
+        if not fn.exists():
+            raise AssertionError(f"parse_geotiff on {dev} wrote no file (it logs its error instead of raising)")
+    rows["parse_geotiff"] = sample[device]
+    results["parse_geotiff"] = hold_geotiff(out_dir / f"sample_rgb_{device}.tif", out_dir / "sample_rgb_cpu.tif")
+    wall, moved, shape = ugrid_arrays_equal(proc.velocimetry_mask_obj, device)
+    rows["to_ugrid"] = {"wall_s": wall, **moved, "time_faces": shape}
+    results["to_ugrid"] = "arrays equal to the CPU's"
+    return results, rows, _stage_walls(handler.lines)
+
+
 def geul_camera_config():
     """The Geul fixture's camera (GEUL_CAMERA) as the port's ``CameraConfig``."""
     import copy
@@ -1906,7 +2138,7 @@ def main(argv) -> int:
     print(f"lazy chain 1920x1080x126 from a host frame source: wall {wall:.3f} s; {lazy_launches} launches; "
           "stages " + json.dumps(lazy_rows))
     print("lazy chain results " + json.dumps(lazy_results), flush=True)
-    video_launches = service_launches = 0
+    video_launches = service_launches = outputs_launches = 0
     if probe.get("cv2_video_io") == "FFV1 round trip exact":
         clip = write_clip(stack, ROOT / "build" / "smoke_1080p.avi")
         t0 = time.perf_counter()
@@ -1933,14 +2165,27 @@ def main(argv) -> int:
         cli_wall, cli_walls = cli_phase(clip, ROOT / "build", device)
         print(f"CLI (python3 -m pyorc_tpu_torch.cli.main velocimetry ... build/service_out) on that clip: exit 0, "
               f"wall {cli_wall:.3f} s; stage walls [s] from its log " + json.dumps(cli_walls), flush=True)
+
+        t0 = time.perf_counter()
+        (out_results, out_rows, out_walls), outputs_launches = _drive(
+            piv_kernels, "piv_pairs",
+            lambda: outputs_phase(clip, stack, nadir_camera_config(1080, 1920), ROOT / "build", device),
+        )
+        wall = time.perf_counter() - t0
+        print(f"recipe outputs on that clip (step 5d's recipe + frames.to_video FFV1 .avi + frames.to_geotiff "
+              f"frame 0; parse_geotiff; to_ugrid): wall {wall:.3f} s; {outputs_launches} launches; stage walls [s] "
+              f"from its log " + json.dumps(out_walls))
+        print("recipe outputs per new stage (wall_s, bytes h2d / d2h) " + json.dumps(out_rows))
+        print("recipe outputs results " + json.dumps(out_results), flush=True)
         clip.unlink()
         wl = water_level_phase(ROOT / "build", device)
         print("optical water level on a 1920x1080 FFV1 clip of the Geul scene (service.get_water_level): "
               + json.dumps(wl), flush=True)
     else:
         why = probe.get("cv2_video_io", probe["cv2"])
-        print(f"video chain, service, CLI and optical water level not run: OpenCV cannot round-trip a lossless "
-              f"clip here ({why})")
+        print(f"video chain, service, CLI, recipe outputs and optical water level not run: OpenCV cannot "
+              f"round-trip a lossless clip here ({why})")
+    print(host_only_outputs(), flush=True)
     del pivs, stack
 
     t0 = time.perf_counter()
@@ -2036,7 +2281,8 @@ def main(argv) -> int:
         {
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
             "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
-            "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches + service_launches,
+            "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches + service_launches
+            + outputs_launches,
             "max_abs_err": max(
                 e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), *mp_main.values(), ns_main]
             ),
@@ -2048,6 +2294,7 @@ def main(argv) -> int:
             f"launches_{ns}px": ns_launches, f"ms_{ns}px": ns_main["ms"], f"plain_ms_{ns}px": ns_main["plain_ms"],
             f"bound_ms_{ns}px": ns_main["bound_ms"], f"bound_by_{ns}px": ns_main["bound_by"],
             "launches_lazy": lazy_launches, "launches_video": video_launches, "launches_service": service_launches,
+            "launches_outputs": outputs_launches,
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",

@@ -34,5 +34,22 @@ __all__ = [
     "Video",
     "get_device",
     "set_device",
+    "project_numpy",
+    "project_cv",
+    "sample_data",
+    "plot_helpers",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # modules and functions that import matplotlib or urllib, or build ortho maps, when used
+    if name in ("project_numpy", "project_cv"):
+        from . import project
+
+        return getattr(project, name)
+    if name in ("project", "sample_data", "plot_helpers"):
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,13 +17,20 @@ or RGB, for two kinds of frame stack:
   ``get_stiv`` read the chain's device batches.
 
 The PIV loop, time-resolved, multipass or ensemble, streams through the CUDA
-kernels (:mod:`pyorc_tpu_torch.velocimetry`). The exports (video, animation,
-GeoTIFF, plot) are not ported yet (ROADMAP.md, queue A).
+kernels (:mod:`pyorc_tpu_torch.velocimetry`).
+
+The exports read a lazy stack as its chain is read, not frame by frame:
+``to_video``, ``to_ani`` and ``to_geotiffs`` walk ``iter_batches``, so each
+frame is decoded and uploaded once (an integer index of a ``LazyFrames`` is
+one decode, and with OpenCV one seek). ``to_video`` scales each frame to uint8
+on the device and downloads only the uint8 frames. ``to_ani`` and ``plot``
+draw with matplotlib on the host.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 from typing import Optional
 
@@ -39,6 +46,8 @@ from .orcbase import ORCBase
 from .video import LazyFrames
 
 __all__ = ["Frames"]
+
+logger = logging.getLogger(__name__)
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("", "0", "false", "no", "off")
@@ -457,3 +466,225 @@ class Frames(ORCBase):
             },
             attrs=dict(self._obj.attrs),
         )
+
+    # -- output ------------------------------------------------------------
+
+    def _host_frames(self, frames: slice = slice(None), batch: int = 16):
+        """Yield (index, host frame) for the frames ``frames`` selects, in order. A lazy stack
+        is read through its chain in batches: one decode and one upload a frame."""
+        data = self._obj.data
+        idx = range(data.shape[0])[frames]
+        if isinstance(data, LazyFrames):
+            for start, chunk in data[frames].iter_batches(batch):
+                for k, frame in enumerate(to_host(chunk)):
+                    yield idx[start + k], frame
+        else:
+            for i in idx:
+                yield i, np.asarray(data[i])
+
+    def to_video(self, fn, video_format=None, fps=None, progress=True):
+        """Write the frames as a video (reference frames.py:537-607).
+
+        Each frame becomes uint8 on the device as the JAX package makes it
+        (:func:`pyorc_tpu_torch.ops.filters.video_uint8`), and only the uint8
+        frames come down. The writer is chosen up front and logged: the native
+        H.264 writer (``native/decoder.cpp``) where it builds, as in the JAX
+        package, which ignores ``video_format``; else OpenCV's
+        ``cv2.VideoWriter`` with ``video_format`` as its fourcc (default
+        ``"mp4v"``), as the reference wrote and the JAX package's ``to_ani``
+        falls back to.
+        """
+        if fps is None:
+            diffs = np.diff(self._obj["time"].values)
+            fps = 1.0 / diffs.mean() if len(diffs) else 25.0
+        n, h, w = self._obj.shape[:3]
+        writer = _video_writer(str(fn), w, h, float(fps), self._obj.ndim == 4, video_format)
+        bar = _progress_bar(n, "Writing video", progress)
+        try:
+            for chunk in self._device_batches(16):
+                for frame in to_host(flt.video_uint8(chunk)):
+                    writer.write(frame)
+                bar.update(chunk.shape[0])
+        finally:
+            writer.close()
+            bar.close()
+
+    def to_ani(
+        self,
+        fn,
+        figure_kwargs=None,
+        video_kwargs=None,
+        anim_kwargs=None,
+        progress_bar: bool = True,
+        **kwargs,
+    ):
+        """Store an animation of the frames (reference frames.py:469-535), drawn with matplotlib
+        on the host from the frames as :meth:`_host_frames` reads them."""
+        import matplotlib.animation as animation
+        import matplotlib.pyplot as plt
+
+        figure_kwargs = const.FIGURE_ARGS if figure_kwargs is None else figure_kwargs
+        video_kwargs = const.VIDEO_ARGS if video_kwargs is None else video_kwargs
+        anim_kwargs = const.ANIM_ARGS if anim_kwargs is None else anim_kwargs
+
+        fig = plt.figure(**figure_kwargs)
+        ax = plt.subplot(111)
+        ax.set_axis_off()
+        fig.subplots_adjust(left=0, bottom=0, right=1, top=1, wspace=None, hspace=None)
+        n = self._obj.shape[0]
+        cursor = _FrameCursor(self)
+        im = ax.imshow(cursor.frame(0), **kwargs)
+        pbar = _progress_bar(n, "Writing animation", progress_bar)
+
+        def update(i):
+            im.set_data(cursor.frame(i))
+            pbar.update(1)
+            return (im,)
+
+        if animation.writers.is_available("ffmpeg"):
+            anim = animation.FuncAnimation(fig, update, frames=n, **anim_kwargs)
+            anim.save(str(fn), **video_kwargs)
+        else:
+            # no ffmpeg CLI on PATH: render each figure frame and encode
+            # with cv2's VideoWriter instead
+            import cv2
+
+            fps = video_kwargs.get("fps", 25)
+            writer = None
+            for i in range(n):
+                update(i)
+                fig.canvas.draw()
+                rgba = np.asarray(fig.canvas.buffer_rgba())
+                bgr = cv2.cvtColor(rgba, cv2.COLOR_RGBA2BGR)
+                if writer is None:
+                    fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+                    writer = cv2.VideoWriter(str(fn), fourcc, fps, (bgr.shape[1], bgr.shape[0]))
+                writer.write(bgr)
+            if writer is not None:
+                writer.release()
+        pbar.close()
+        plt.close(fig)
+
+    def to_geotiffs(
+        self,
+        prefix: str,
+        start_frame: int = None,
+        end_frame: int = None,
+        stride: int = 1,
+        suffix: str = ".tif",
+        progress_bar: bool = True,
+    ):
+        """Export frames as individual GeoTIFFs (reference frames.py:550-607).
+
+        Files are named ``{prefix}_{frame:04d}{suffix}``. Frames must be
+        projected. A lazy stack is read once through its chain (each frame
+        decoded and uploaded once); each frame comes down in its own dtype,
+        which the file keeps.
+        """
+        self._require_projected("GeoTIFF")
+        n = self._obj.shape[0]
+        start_frame = 0 if start_frame is None else start_frame
+        end_frame = n if end_frame is None else min(end_frame, n)
+        bar = _progress_bar(len(range(start_frame, end_frame, stride)), "Writing GeoTIFFs", progress_bar)
+        fns = []
+        try:
+            for i, frame in self._host_frames(slice(start_frame, end_frame, stride)):
+                fn = f"{prefix}_{i:04d}{suffix}"
+                self._write_geotiff(fn, frame)
+                fns.append(fn)
+                bar.update(1)
+        finally:
+            bar.close()
+        return fns
+
+    def to_geotiff(self, fn, frame: int = 0, crs=None):
+        """Write one projected frame as a GeoTIFF (pure-Python writer); a lazy stack reads that frame alone."""
+        self._require_projected("GeoTIFF")
+        self._write_geotiff(fn, np.asarray(self._obj.isel(time=frame).values), crs)
+
+    def _require_projected(self, what: str) -> None:
+        """Raise ``ValueError`` on frames that are not projected (the JAX package asserts)."""
+        if not self.is_projected:
+            raise ValueError(f"Frames must be projected before writing to {what}")
+
+    def _write_geotiff(self, fn, data: np.ndarray, crs=None) -> None:
+        from ..io.geotiff import write_geotiff
+
+        cc = self.camera_config
+        crs = crs if crs is not None else getattr(cc, "crs", None)
+        write_geotiff(fn, data, cc.transform, crs=crs)
+
+    def plot(self, ax=None, mode: str = "local", **kwargs):
+        """Plot a single frame (time must already be selected)."""
+        from .plot import frames_plot
+
+        return frames_plot(self._obj, ax=ax, mode=mode, **kwargs)
+
+
+class _FrameCursor:
+    """Host frames of a stack by index for a reader that asks in order, as an animation does:
+    the next index advances one stream over the stack (:meth:`Frames._host_frames`), the same
+    index is served again, and an earlier one is read on its own."""
+
+    def __init__(self, frames: Frames):
+        self._frames = frames
+        self._stream = frames._host_frames()
+        self._index, self._frame = -1, None
+
+    def frame(self, i: int) -> np.ndarray:
+        while self._index < i:
+            self._index, self._frame = next(self._stream)
+        if self._index == i:
+            return self._frame
+        return np.asarray(self._frames._obj.data[i])
+
+
+class _NoBar:
+    def update(self, n=1):
+        pass
+
+    def close(self):
+        pass
+
+
+def _progress_bar(total: int, desc: str, enabled: bool):
+    """A tqdm bar of ``total`` steps, or, when disabled, a stand-in (tqdm is not imported then)."""
+    if not enabled:
+        return _NoBar()
+    from tqdm import tqdm
+
+    return tqdm(total=total, desc=desc, position=0, leave=True)
+
+
+class _Cv2Writer:
+    """``cv2.VideoWriter`` behind the native writer's ``write`` / ``close``: RGB frames go in as
+    BGR, which OpenCV encodes, so that a decode gives back the frames written."""
+
+    def __init__(self, fn: str, width: int, height: int, fps: float, rgb: bool, fourcc: str):
+        import cv2
+
+        self._cv2 = cv2
+        self._rgb = rgb
+        self._out = cv2.VideoWriter(fn, cv2.VideoWriter_fourcc(*fourcc), fps, (width, height), isColor=rgb)
+        if not self._out.isOpened():
+            raise IOError(f"cv2.VideoWriter cannot write fourcc {fourcc!r} to {fn}")
+
+    def write(self, frame: np.ndarray) -> None:
+        frame = self._cv2.cvtColor(frame, self._cv2.COLOR_RGB2BGR) if self._rgb else frame
+        self._out.write(np.ascontiguousarray(frame))
+
+    def close(self) -> None:
+        self._out.release()
+
+
+def _video_writer(fn: str, width: int, height: int, fps: float, rgb: bool, video_format=None):
+    """The writer :meth:`Frames.to_video` uses, chosen before the first frame and logged."""
+    from ..io import native_decoder
+
+    if native_decoder.encoder_available():
+        logger.info(f"to_video: native H.264 writer (native/decoder.cpp) -> {fn}")
+        return native_decoder.NativeVideoWriter(fn, width, height, fps=fps, channels=3 if rgb else 1)
+    fourcc = video_format or "mp4v"
+    reason = (native_decoder.load_error() or "unavailable").splitlines()[0]
+    logger.info(f"to_video: cv2.VideoWriter, fourcc {fourcc!r} -> {fn} (no native encoder: {reason})")
+    return _Cv2Writer(fn, width, height, fps, rgb, fourcc)

@@ -176,5 +176,7 @@ class Transect(ORCBase):
     def plot(self):
         """Plot methods object: callable (defaults to quiver) and exposing
         .quiver/.pcolormesh/.scatter/.streamplot/.get_uv_* (reference
-        api/plot.py); not ported yet."""
-        raise NotImplementedError("Plotting is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A).")
+        api/plot.py)."""
+        from .plot import _Transect_PlotMethods
+
+        return _Transect_PlotMethods(self)

@@ -12,6 +12,7 @@ from typing import Optional
 import numpy as np
 
 from .. import const, helpers, ndx
+from ..geom import aoi as aoi_mod
 from ..geom import crs as crs_mod
 from .mask import _Velocimetry_MaskMethods
 from .orcbase import ORCBase
@@ -160,12 +161,41 @@ class Velocimetry(ORCBase):
         return qds
 
     def to_ugrid(self, time0=None, title=None, fill_na=None) -> ndx.Dataset:
-        """UGRID-1.0 mesh export for QGIS. Reference velocimetry.py:255-310."""
-        raise NotImplementedError("UGRID export is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A).")
+        """UGRID-1.0 mesh export for QGIS. Reference velocimetry.py:255-310.
+
+        Host numpy on the Dataset's arrays, as in the JAX package: the fields
+        came down from the device when ``get_piv`` returned."""
+        from ..io import ugrid as ugrid_io
+
+        resolution = float(np.mean(np.diff(self._obj["x"].values)))
+        aff = aoi_mod.get_transform(self.camera_config.bbox, resolution)
+        theta = np.arctan2(aff[3], aff[0])
+        ucx, ucy = helpers.rotate_u_v(self._obj["v_x"].values, -self._obj["v_y"].values, theta)
+        crs = getattr(self.camera_config, "crs", None)
+        data_vars = {
+            "mesh2d_ucx": ucx,
+            "mesh2d_ucy": ucy,
+            "s2n": self._obj["s2n"].values,
+            "corr": self._obj["corr"].values,
+        }
+        time = self._obj["time"].values if "time" in self._obj.sizes else np.array([0.0])
+        return ugrid_io.to_ugrid(
+            data_vars=data_vars,
+            x=self._obj["x"].values,
+            y=self._obj["y"].values,
+            time=np.atleast_1d(time),
+            aff=aff,
+            crs=crs,
+            time0=time0,
+            title=title,
+            fill_na=fill_na,
+        )
 
     @property
     def plot(self):
         """Plot methods object: callable (defaults to quiver) and exposing
         .quiver/.pcolormesh/.scatter/.streamplot/.get_uv_* (reference
-        api/plot.py); not ported yet."""
-        raise NotImplementedError("Plotting is not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A).")
+        api/plot.py)."""
+        from .plot import _Velocimetry_PlotMethods
+
+        return _Velocimetry_PlotMethods(self)

@@ -2,10 +2,9 @@
 (reference ``pyorc/cli/cli_utils.py``) on the port's classes.
 
 GeoJSON reading replaces geopandas; recipe validation introspects the port's
-method signatures exactly like the reference does. The interactive
-selectors (GCPs, AOI corners, stabilization region; matplotlib windows in the
-JAX package's ``cli_elements.py``) and the GeoTIFF export are not ported
-(ROADMAP.md, queue A item 8): they raise ``NotImplementedError``.
+method signatures exactly like the reference does. The interactive selectors
+(GCPs, AOI corners, stabilization region) open matplotlib windows
+(:mod:`pyorc_tpu_torch.cli.cli_elements`), imported when they are called.
 """
 
 from __future__ import annotations
@@ -41,14 +40,7 @@ __all__ = [
     "validate_recipe",
     "get_gcps_optimized_fit",
     "parse_lens_params",
-    "refuse_not_ported",
 ]
-
-# what the interactive and export helpers say when called
-_NOT_PORTED = (
-    "{what} is not ported to pyorc_tpu_torch (ROADMAP.md, queue A item 8: exports, plotting and the "
-    "interactive camera-config).{hint}"
-)
 
 
 def get_file_hash(fn):
@@ -221,26 +213,8 @@ def validate_dst(value):
     return value
 
 
-def refuse_not_ported(recipe: dict) -> None:
-    """Raise ``NotImplementedError`` when the recipe asks for something the port does not run yet."""
-    asks = ["the plot stage (api/plot.py)"] if "plot" in recipe else []
-    for section in ("velocimetry", "mask"):
-        if (recipe.get(section) or {}).get("write_ugrid"):
-            asks.append(f"{section}.write_ugrid (io/ugrid.py)")
-    for key in ("to_video", "to_geotiff"):
-        if key in (recipe.get("frames") or {}):
-            asks.append(f"frames.{key}")
-    if asks:
-        raise NotImplementedError(
-            f"The recipe asks for {', '.join(asks)}, not ported to pyorc_tpu_torch yet (ROADMAP.md, queue A item 8)."
-        )
-
-
 def validate_recipe(recipe):
-    """Validate recipe sections/methods against API signatures. Reference cli_utils.py:425-475.
-
-    Entries the port does not run yet are refused first (:func:`refuse_not_ported`)."""
-    refuse_not_ported(recipe)
+    """Validate recipe sections/methods against API signatures. Reference cli_utils.py:425-475."""
     valid_classes = ["video", "water_level", "frames", "velocimetry", "mask", "transect", "stiv", "plot"]
     required_classes = ["video", "frames", "velocimetry"]
     check_args = {"video": "video", "frames": "frames"}
@@ -319,22 +293,99 @@ def parse_lens_params(height, width, focal_length=None, k1=None, k2=None):
 
 
 def parse_geotiff(videofile, cam_config_file, fn_geotiff, frame_sample=0, logger=logging):
-    """Write a projected RGB sample frame as GeoTIFF (reference :350-362). Not ported."""
-    raise NotImplementedError(_NOT_PORTED.format(what="The GeoTIFF export", hint=""))
+    """Write a projected RGB sample frame as GeoTIFF. Reference :350-362."""
+    from ..api.video import Video
+
+    try:
+        vid = Video(
+            videofile, start_frame=frame_sample, end_frame=frame_sample + 1, camera_config=cam_config_file
+        )
+        frames = vid.get_frames(method="rgb")
+        frames_proj = frames.frames.project(reducer="nearest")
+        frames_proj.frames.to_geotiff(fn_geotiff, frame=0)
+        logger.info(f"Sample geotiff written to {fn_geotiff}")
+    except Exception as e:
+        logger.error(f"Could not create sample geotiff. Error: {e}")
 
 
-def get_gcps_interactive(fn, dst, **kwargs):
-    """Interactive GCP selection on a sample frame (reference :66-122). Not ported."""
-    raise NotImplementedError(_NOT_PORTED.format(what="Interactive GCP selection", hint=" Pass --src."))
+def _sample_rgb_frame(fn, frame_sample=0, rotation=None):
+    from ..api.video import Video
+
+    vid = Video(fn, start_frame=int(frame_sample), end_frame=int(frame_sample) + 1, rotation=rotation, progress=False)
+    return vid.get_frame(0, method="rgb")
 
 
-def get_corners_interactive(fn, gcps, **kwargs):
-    """Interactive AOI corner selection on a sample frame (reference :22-63). Not ported."""
-    raise NotImplementedError(_NOT_PORTED.format(what="Interactive AOI corner selection", hint=" Pass --corners."))
+def get_gcps_interactive(
+    fn, dst, crs=None, crs_gcps=None, frame_sample=0, rotation=None, lens_position=None, camera_matrix=None,
+    dist_coeffs=None, logger=logging,
+):
+    """Interactive GCP selection on a sample frame. Reference :66-122."""
+    from .cli_elements import GcpSelect
+
+    img = _sample_rgb_frame(fn, frame_sample, rotation)
+    if crs_gcps is not None:
+        from .. import helpers
+
+        dst = helpers.xyz_transform(dst, crs_from=crs_gcps, crs_to=4326)
+    selector = GcpSelect(img, dst, crs=crs, lens_position=lens_position, logger=logger)
+    src = selector.run()
+    return src, selector.camera_matrix_fit, selector.dist_coeffs_fit
+
+
+def get_corners_interactive(
+    fn, gcps, crs=None, crs_gcps=None, frame_sample=0, camera_matrix=None, dist_coeffs=None,
+    rotation=None, logger=logging,
+):
+    """Interactive AOI corner selection on a sample frame. Reference :22-63.
+
+    Builds an interim CameraConfig from the already-selected GCPs (and any
+    optimized intrinsics) so ``AoiSelect`` can render the live ortho-bbox
+    preview the reference shows (reference ``cli_elements.py:236-359``); a
+    failed interim fit degrades to plain corner clicking, never blocks it.
+    """
+    from .cli_elements import AoiSelect
+
+    img = _sample_rgb_frame(fn, frame_sample, rotation)
+    cam_config = _interim_camera_config(img, gcps, crs=crs, camera_matrix=camera_matrix,
+                                        dist_coeffs=dist_coeffs, rotation=rotation, logger=logger)
+    selector = AoiSelect(img, src=gcps.get("src"), dst=gcps.get("dst"), camera_config=cam_config, logger=logger)
+    return selector.run()
+
+
+def _interim_camera_config(img, gcps, crs=None, camera_matrix=None, dist_coeffs=None,
+                           rotation=None, logger=logging):
+    """Preliminary CameraConfig from clicked GCPs for the AOI live preview.
+
+    Mirrors the reference's interim config (reference ``cli_utils.py:22-63``):
+    height/width from the sample frame, the gcps dict as-is (its optional
+    ``crs`` key reprojects dst into ``crs``), plus any optimized intrinsics
+    from the GCP selector. Returns None when the fit fails (e.g. degenerate
+    GCPs) so the caller can still collect corners without a preview.
+    """
+    from ..api.cameraconfig import CameraConfig
+
+    try:
+        gcps_cc = {k: v for k, v in gcps.items() if k in ("src", "dst", "z_0", "h_ref", "crs")}
+        if gcps_cc.get("crs") is None:
+            gcps_cc.pop("crs", None)
+        return CameraConfig(
+            height=int(img.shape[0]),
+            width=int(img.shape[1]),
+            crs=crs,
+            gcps=gcps_cc,
+            camera_matrix=camera_matrix.tolist() if hasattr(camera_matrix, "tolist") else camera_matrix,
+            dist_coeffs=dist_coeffs.tolist() if hasattr(dist_coeffs, "tolist") else dist_coeffs,
+            rotation=rotation,
+        )
+    except Exception as e:
+        logger.warning(f"Could not build interim camera config for AOI preview: {e}")
+        return None
 
 
 def get_stabilize_pol(fn, frame_sample=0, rotation=None, logger=logging):
-    """Interactive stabilization-region selection (reference :125-131). Not ported."""
-    raise NotImplementedError(
-        _NOT_PORTED.format(what="Interactive stabilization-region selection", hint=" Leave out --stabilize.")
-    )
+    """Interactive stabilization-region selection. Reference :125-131."""
+    from .cli_elements import StabilizeSelect
+
+    img = _sample_rgb_frame(fn, frame_sample, rotation)
+    selector = StabilizeSelect(img, logger=logger)
+    return selector.run()

@@ -1,11 +1,11 @@
 """Click CLI: ``pyorc-tpu-torch camera-config`` and ``pyorc-tpu-torch velocimetry``.
 
 The JAX package's CLI (:mod:`pyorc_tpu.cli.main`, a port of reference
-``pyorc/cli/main.py:41-402``) on the port's service. Two parts are refused
-with a message: the interactive selectors of ``camera-config`` (GCPs without
-``--src``, AOI corners without ``--corners`` on an oblique camera,
-``--stabilize``; ROADMAP.md, queue A item 8) and ``velocimetry
---num-hosts > 1`` (ROADMAP.md, queue A item 9). The commands compute on
+``pyorc/cli/main.py:41-402``) on the port's service. ``camera-config`` opens
+the interactive selectors (:mod:`pyorc_tpu_torch.cli.cli_elements`, matplotlib)
+for GCPs without ``--src``, AOI corners without ``--corners`` on an oblique
+camera, and ``--stabilize``. ``velocimetry --num-hosts > 1`` is refused with a
+message (ROADMAP.md, queue A item 9). The commands compute on
 ``pyorc_tpu_torch.get_device()``: the card, unless ``PYORC_TPU_TORCH_DEVICE``
 names another device.
 """
@@ -87,7 +87,7 @@ def cli(ctx, info, license):  # noqa: A002
 )
 @click.option("--lens_position", type=str, help="Lens position as [x, y, z]", callback=cli_utils.parse_json)
 @click.option("--corners", type=str, callback=cli_utils.parse_corners, help="AOI corners: 4 [column, row] points")
-@click.option("--stabilize", "-s", is_flag=True, default=False, help="Interactive stabilization region (not ported)")
+@click.option("--stabilize", "-s", is_flag=True, default=False, help="Enable interactive stabilization region")
 @click.option("--rotation", type=int, required=False, callback=cli_utils.validate_rotation, help="90/180/270 rotation")
 @verbose_opt
 @click.pass_context
@@ -153,7 +153,15 @@ def camera_config(
     camera_matrix = None
     dist_coeffs = None
     if src is None:
-        cli_utils.get_gcps_interactive(videofile, dst)  # raises: not ported
+        from .cli_elements import GcpSelect
+
+        logger.warning("No source control points provided; select them interactively.")
+        vid = Video(videofile, start_frame=frame_sample, end_frame=frame_sample + 1, rotation=rotation, progress=False)
+        img = vid.get_frame(0, method="rgb")
+        selector = GcpSelect(img, dst, crs=crs, lens_position=lens_position, logger=logger)
+        src = selector.run()
+        camera_matrix = selector.camera_matrix_fit
+        dist_coeffs = selector.dist_coeffs_fit
     elif focal_length is not None or k1 is not None or k2 is not None:
         if focal_length is not None:
             vid = Video(videofile, start_frame=frame_sample, end_frame=frame_sample + 1, rotation=rotation, progress=False)
@@ -166,12 +174,24 @@ def camera_config(
         raise click.UsageError(f"--crs is None while --crs_gcps is {crs_gcps}, please supply --crs.")
     gcps = {"src": src, "dst": dst, "z_0": z_0, "h_ref": h_ref, "crs": crs_gcps}
     if not corners:
-        if not nadir:
-            cli_utils.get_corners_interactive(videofile, gcps)  # raises: not ported
-        vid = Video(videofile, start_frame=frame_sample, end_frame=frame_sample + 1, rotation=rotation, progress=False)
-        corners = [[0, 0], [vid.width, 0], [vid.width, vid.height], [0, vid.height]]
+        if nadir:
+            vid = Video(videofile, start_frame=frame_sample, end_frame=frame_sample + 1, rotation=rotation, progress=False)
+            corners = [[0, 0], [vid.width, 0], [vid.width, vid.height], [0, vid.height]]
+        else:
+            logger.warning("No corner points provided; select them interactively.")
+            corners = cli_utils.get_corners_interactive(
+                videofile, gcps, crs=crs, frame_sample=frame_sample,
+                camera_matrix=camera_matrix, dist_coeffs=dist_coeffs, rotation=rotation, logger=logger,
+            )
+            if len(corners) != 4:
+                raise click.UsageError("4 corner points are required; provide --corners.")
+    stabilize_pol = None
     if stabilize:
-        cli_utils.get_stabilize_pol(videofile)  # raises: not ported
+        from .cli_elements import StabilizeSelect
+
+        vid = Video(videofile, start_frame=frame_sample, end_frame=frame_sample + 1, rotation=rotation, progress=False)
+        img = vid.get_frame(0, method="rgb")
+        stabilize_pol = StabilizeSelect(img, logger=logger).run()
     service.camera_config(
         video_file=videofile,
         cam_config_file=output,
@@ -184,7 +204,7 @@ def camera_config(
         corners=corners,
         camera_matrix=camera_matrix.tolist() if isinstance(camera_matrix, np.ndarray) else camera_matrix,
         dist_coeffs=dist_coeffs.tolist() if isinstance(dist_coeffs, np.ndarray) else dist_coeffs,
-        stabilize=None,
+        stabilize=stabilize_pol,
         rotation=rotation,
     )
     logger.info(f"Camera configuration created and stored in {output}")
@@ -227,7 +247,7 @@ def camera_config(
     "--num-hosts",
     type=int,
     default=1,
-    help="Multi-host run (not ported: only 1 is accepted).",
+    help="Multi-host run: only 1 is accepted (multi-device is ROADMAP.md, queue A item 9).",
 )
 @verbose_opt
 @click.pass_context

@@ -253,11 +253,56 @@ def round_to_multiple(number, multiple):
     return _impl(number, multiple)
 
 
+def get_rotation_code(rotation):
+    """Rotation degrees -> cv2 rotation code. Reference helpers.py:245."""
+    from .io.video_reader import get_rotation_code as _impl
+
+    return _impl(rotation)
+
+
+def staggered_index(start=0, end=100):
+    """Staggered (bisection-ordered) frame index. Reference helpers.py:682-713."""
+    from .io.calibration import staggered_index as _impl
+
+    return _impl(start=start, end=end)
+
+
 def xyz_transform(points, crs_from, crs_to):
     """Transform [x, y(, z)] points between CRSs. Reference helpers.py:916-954."""
     from .api.cameraconfig import xyz_transform as _impl
 
     return _impl(points, crs_from, crs_to)
+
+
+def read_shape_safe_crs(fn):
+    """Read a GeoJSON shape with CRS=None preserved (geopandas defaults missing
+    CRS to EPSG:4326; this keeps it unset). Reference helpers.py:581-599.
+    Returns (coords, crs) rather than a GeoDataFrame (geopandas-free build)."""
+    from .cli.cli_utils import read_shape as _impl
+
+    return _impl(fn=fn)
+
+
+def get_geo_axes(tiles=None, extent=None, zoom_level=19, **kwargs):
+    """Geographical plot axes with an optional XYZ basemap.
+
+    Reference helpers.py:171-204 builds cartopy GeoAxes with image tilers;
+    here the tiles render through the self-contained Web-Mercator fetcher
+    (:mod:`pyorc_tpu_torch.io.basemap`) onto a plain lon/lat axes — offline runs
+    degrade gracefully to no background.
+    """
+    import matplotlib.pyplot as plt
+
+    ax = plt.axes()
+    if tiles is not None and extent is not None:
+        from .io import basemap
+
+        basemap.add_basemap(ax, extent, tiles=tiles, zoom_level=min(int(zoom_level), 19))
+    if extent is not None:
+        ax.set_xlim(extent[0], extent[1])
+        ax.set_ylim(extent[2], extent[3])
+    ax.set_aspect("equal")
+    return ax
 
 
 def mse(pars, func, x, y):

@@ -24,6 +24,8 @@ __all__ = [
     "time_diff",
     "minmax",
     "saturating_cast",
+    "numpy_uint8_cast",
+    "video_uint8",
     "frame_range",
     "reduce_rolling",
 ]
@@ -131,6 +133,37 @@ def saturating_cast(frames: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return frames.to(dtype)
     info = torch.iinfo(dtype)
     return torch.nan_to_num(frames, nan=0.0).clamp(info.min, info.max).to(dtype)
+
+
+def numpy_uint8_cast(values: torch.Tensor) -> torch.Tensor:
+    """``values`` as uint8 by the rule that numpy's ``astype(np.uint8)`` follows for floats on
+    x86-64, on any device: truncate toward zero to int32, where NaN, +-inf and anything outside
+    the int32 range become INT_MIN, then keep the low byte (NaN -> 0, -5.0 -> 251, 300.0 -> 44,
+    1e10 -> 0). Integers keep their low byte, as numpy wraps them. ``.to(torch.uint8)`` of an
+    out-of-range float is undefined behaviour in C++, and a CUDA card is not bound to match."""
+    if values.dtype == torch.uint8:
+        return values
+    if values.dtype.is_floating_point:
+        valid = values.abs() < 2.0**31  # False for NaN and +-inf
+        values = torch.where(valid, values, torch.zeros_like(values)).to(torch.int32)
+    return (values.to(torch.int64) & 0xFF).to(torch.uint8)
+
+
+def video_uint8(frames: torch.Tensor) -> torch.Tensor:
+    """Frames [T, H, W] or RGB [T, H, W, 3] as the uint8 frames of a video, as the JAX
+    package's ``Frames.to_video`` makes them frame by frame: a gray frame in float32 becomes
+    ``(f - nanmin) / (nanmax - nanmin) * 255`` when nanmax > nanmin and stays as it is
+    otherwise (an all-NaN or constant frame), then goes through :func:`numpy_uint8_cast`;
+    RGB frames are cast as they are. Every step is an IEEE float32 op, so the bytes are the
+    same on the CPU and on the card."""
+    if frames.ndim == 4:
+        return numpy_uint8_cast(frames)
+    f = frames.to(torch.float32)
+    nan = torch.isnan(f)
+    fmin = torch.where(nan, torch.inf, f).amin(dim=(1, 2), keepdim=True)
+    fmax = torch.where(nan, -torch.inf, f).amax(dim=(1, 2), keepdim=True)
+    scaled = (f - fmin) / (fmax - fmin) * 255
+    return numpy_uint8_cast(torch.where(fmax > fmin, scaled, f))
 
 
 def frame_range(frames: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,11 @@
 
 A copy of :mod:`pyorc_tpu.service.velocimetry` on the port's classes: the
 video's frames stay a ``LazyFrames`` stack, so the frames and velocimetry
-stages stream decode -> filters -> project -> PIV on the device. What the
-port lacks is refused before any stage runs, with ``NotImplementedError``
-naming its ROADMAP.md item: the ``plot`` section (``api/plot.py``),
-``write_ugrid`` (UGRID export) and the frames section's ``to_video`` and
-``to_geotiff``.
+stages stream decode -> filters -> project -> PIV on the device, and the
+frames section's ``to_video`` and ``to_geotiff`` read that chain as well
+(``Frames.to_video`` streams it once, with only uint8 frames coming down).
+``write_ugrid`` and the ``plot`` stage are host code over the Dataset's
+arrays; the plot stage needs matplotlib where it runs.
 
 The JAX package's service has the same *contract* as the reference service layer (reference
 ``pyorc/service/velocimetry.py``): the YAML recipe's sections run in the fixed
@@ -141,6 +141,15 @@ def get_masks(obj, **mask_methods) -> List:
     ]
 
 
+def vmin_vmax_to_norm(opts: Dict) -> Dict:
+    """Fold plain vmin/vmax plot options into a matplotlib Normalize."""
+    if "vmin" in opts or "vmax" in opts:
+        from matplotlib.colors import Normalize
+
+        opts["norm"] = Normalize(vmin=opts.pop("vmin", None), vmax=opts.pop("vmax", None))
+    return opts
+
+
 def get_water_level(
     video: Video,
     cross_section: CrossSection,
@@ -233,6 +242,13 @@ PIPELINE: List[StageSpec] = [
         tracked_files=("fn_piv_mask",),
     ),
     StageSpec("stiv", recipe_key="stiv", optional=True),
+    StageSpec(
+        "plot",
+        recipe_key="plot",
+        optional=True,
+        config_keys=("video", "frames", "velocimetry", "transect", "plot"),
+        tracked_files=("fn_video", "fn_piv_mask"),
+    ),
 ]
 
 
@@ -256,7 +272,6 @@ class VelocityFlowProcessor:
         logger: logging.Logger = logging,
     ):
         logger.debug("setting up the velocity-flow pipeline")
-        cli_utils.refuse_not_ported(recipe)
         self.logger = logger
         self.recipe = recipe
         self.output = output
@@ -399,6 +414,20 @@ class VelocityFlowProcessor:
             self.da_frames, "frames", logger=self.logger,
             skip_args=["to_video", "to_geotiff"], **kwargs,
         )
+        if "to_video" in kwargs:
+            opts = kwargs["to_video"] or {}
+            opts.setdefault("fn", os.path.join(self.output, self.prefix + "processed_frames.mp4"))
+            self.logger.info(f"encoding preprocessed frames -> {opts['fn']}")
+            self.da_frames.frames.to_video(**opts)
+        if "to_geotiff" in kwargs:
+            opts = kwargs["to_geotiff"] or {}
+            opts.setdefault("frame", 0)
+            opts.setdefault(
+                "fn",
+                os.path.join(self.output, self.prefix + "frame_{:04d}.tif".format(opts["frame"])),
+            )
+            self.logger.info(f"writing frame {opts['frame']} -> {opts['fn']}")
+            self.da_frames.frames.to_geotiff(**opts)
 
     def velocimetry(self, method="get_piv", write=False, write_ugrid=False, fill_na=None, **kwargs):
         if len(kwargs) > 1:
@@ -413,6 +442,10 @@ class VelocityFlowProcessor:
             self.velocimetry_obj.to_netcdf(self.fn_piv)
             self.logger.info(f"velocity field -> {self.fn_piv}")
             self.velocimetry_obj = ndx.open_dataset(self.fn_piv)
+        if write_ugrid:
+            fn = self.fn_piv.replace(".nc", "_ugrid.nc")
+            self.velocimetry_obj.velocimetry.to_ugrid(fill_na=fill_na).to_netcdf(fn)
+            self.logger.info(f"UGRID mesh -> {fn}")
 
     def mask(self, write=False, write_ugrid=False, fill_na=None, **mask_groups):
         self.velocimetry_mask_obj = copy.deepcopy(self.velocimetry_obj)
@@ -426,6 +459,10 @@ class VelocityFlowProcessor:
         if write:
             self.velocimetry_mask_obj.to_netcdf(self.fn_piv_mask)
             self.logger.info(f"masked field -> {self.fn_piv_mask}")
+        if write_ugrid:
+            fn = self.fn_piv_mask.replace(".nc", "_ugrid.nc")
+            self.velocimetry_mask_obj.velocimetry.to_ugrid(fill_na=fill_na).to_netcdf(fn)
+            self.logger.info(f"masked UGRID mesh -> {fn}")
 
     def transect(self, write=False, **transect_groups):
         self.transects = {}
@@ -530,6 +567,49 @@ class VelocityFlowProcessor:
                 fn = os.path.abspath(os.path.join(self.output, self.prefix + f"stiv_{name}.nc"))
                 ds.to_netcdf(fn)
                 self.logger.info(f"STIV {name} -> {fn}")
+
+    def plot(self, **plot_recipes):
+        """One figure per entry: frames, velocimetry and transect layers over one axes.
+
+        A layer's own ``mode`` wins over the entry's (default ``"local"``), as
+        ``examples/recipe_template.yml`` writes it; the JAX package passes both
+        and raises (ROADMAP.md, queue C)."""
+        for name, params in copy.deepcopy(plot_recipes).items():
+            if not isinstance(params, dict):
+                continue
+            self.logger.debug(f"composing figure {name}")
+            mode = params.get("mode", "local")
+            ax = None
+            if "frames" in params:
+                opts = params["frames"] or {}
+                layer_mode = opts.pop("mode", mode)
+                n = params.get("frame_number", 0)
+                rgb = self.video_obj.get_frames(method="rgb")
+                if layer_mode == "camera":
+                    layer = rgb.isel(time=n)
+                else:
+                    layer = rgb.isel(time=slice(n, n + 1)).frames.project().isel(time=0)
+                ax = layer.frames.plot(ax=ax, mode=layer_mode, **opts)
+            if "velocimetry" in params:
+                opts = vmin_vmax_to_norm(params["velocimetry"] or {})
+                layer_mode = opts.pop("mode", mode)
+                reducer = params.get("reducer", "mean")
+                reduced = getattr(self.velocimetry_mask_obj, reducer)(
+                    dim="time", **params.get("reducer_params", {})
+                )
+                reduced.attrs = dict(self.velocimetry_mask_obj.attrs)
+                ax = reduced.velocimetry.plot(ax=ax, mode=layer_mode, **opts)
+            if "transect" in params:
+                for tname, topts in params["transect"].items():
+                    topts = vmin_vmax_to_norm(topts or {})
+                    layer_mode = topts.pop("mode", mode)
+                    ds = ndx.open_dataset(self.fn_transect_template(tname))
+                    dsq = ds.isel(quantile=topts.pop("quantile", 2))
+                    dsq.attrs = dict(ds.attrs)
+                    ax = dsq.transect.plot(ax=ax, mode=layer_mode, **topts)
+            fn_jpg = os.path.join(self.output, self.prefix + name + ".jpg")
+            ax.figure.savefig(fn_jpg, **params.get("write_pars", {}))
+            self.logger.info(f"figure {name} -> {fn_jpg}")
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ pass) or, with ``ensemble_corr=True``, the ensemble contract through
 on the GPU for windows with sides of 8-128 px; larger windows go to the
 plain tensor ops by plan, as in the JAX package), and a device out-of-memory
 error splits the chunk in two.
-Multi-device sharding is not ported yet (ROADMAP.md, queue A).
+It runs on one device; multi-device sharding is ROADMAP.md, queue A item 9.
 
 As in the JAX package, the ensemble ``count_min`` filter compares pair
 counts against ``count_min * n_pairs`` of the whole stack (the parameter's

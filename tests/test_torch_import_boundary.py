@@ -154,6 +154,49 @@ def test_chip_smoke_service_step_without_jax(tmp_path):
     """)
 
 
+def test_outputs_without_host_libraries(tmp_path):
+    """The output modules (``api/plot.py``, ``plot_helpers.py``, ``io/basemap.py``, ``io/ugrid.py``,
+    ``io/geotiff.py``, ``project.py``, ``sample_data.py``) import with jax, cv2, h5py, tqdm,
+    matplotlib, requests and PIL blocked; there ``to_geotiff``, ``to_ugrid``'s Dataset and step
+    5f's CPU functions run at a small size, and a plot says that it needs matplotlib."""
+    _run_without(ABSENT + ("requests", "PIL"), f"""
+        from pathlib import Path
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import pyorc_tpu_torch
+        from pyorc_tpu_torch import plot_helpers, project, sample_data  # noqa: F401
+        from pyorc_tpu_torch.api import plot
+        from pyorc_tpu_torch.io import basemap, geotiff, ugrid  # noqa: F401
+        from pyorc_tpu_torch.ops import filters as flt
+        import chip_smoke
+
+        pyorc_tpu_torch.set_device("cpu")
+        folder = Path({str(tmp_path)!r})
+        cc = chip_smoke.nadir_camera_config(240, 320, gcp_px=30, aoi_px=40)
+        stack = chip_smoke.advected_stack(240, 320, 8, "cpu")
+        reference = chip_smoke.outputs_reference(stack, cc, folder, samples=2, batch=3)
+        proj = chip_smoke.frames_dataarray(stack, cc).frames.normalize(samples=2).frames.project()
+        frames = list(flt.video_uint8(torch.from_numpy(np.asarray(proj.values))).numpy())
+        assert chip_smoke.hold_video_frames(frames, reference) == 8
+        proj.frames.to_geotiff(folder / "frame_0000.tif", frame=0)
+        assert chip_smoke.hold_geotiff(folder / "frame_0000.tif", folder / "reference_frame_0000.tif") == "byte-equal"
+        x, y = proj["x"].values, proj["y"].values
+        np.testing.assert_array_equal(project.project_numpy(stack[0], cc, x, y, 0.0, reducer="nearest"),
+                                      project.project_cv(stack[:1], cc, x, y, 0.0)[0])
+        piv = proj.frames.get_piv(window_size=32)
+        wall, moved, shape = chip_smoke.ugrid_arrays_equal(piv, "cpu")
+        assert moved == {{"h2d": 0, "d2h": 0}} and shape[0] == 7, (moved, shape)
+        assert "matplotlib absent, h5py absent" in chip_smoke.host_only_outputs()
+        try:
+            plot.frames_plot(proj.isel(time=0))
+        except ImportError as err:
+            assert "matplotlib" in str(err), err
+        else:
+            raise AssertionError("a frame was plotted without matplotlib")
+    """)
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     """Source check: no module of the port, and not chip_smoke.py, imports jax or pyorc_tpu."""
     offenders = []

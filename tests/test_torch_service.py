@@ -11,7 +11,8 @@ velocities) and Q within 1 %: the north star's check. Then the port alone:
 ``--update`` skips, ``validate_recipe`` / ``read_shape`` against JAX's, the CLI
 through ``CliRunner`` and as a child process (``PYORC_TPU_TORCH_DEVICE=cpu``),
 ``camera-config`` against JAX's JSON, the optical water level (``--cross_wl``)
-on a small scene against JAX's, and what the port refuses.
+on a small scene against JAX's, ``examples/recipe_template.yml`` with every output entry
+(the figure, UGRID, the video, a GeoTIFF) against JAX's files, and ``--num-hosts``.
 """
 
 import copy
@@ -356,26 +357,166 @@ def test_recipe_without_write_runs(inputs, tmp_path):
         _run(jsvc, jcli, inputs, tmp_path / "jax", recipe=recipe)
 
 
+X0, Y0 = 500000.0, 5700000.0  # the template's scene in EPSG:32631, for its geographical figure
+JPG_TOL = {"mean": 0.5, "share_over_64": 0.002}  # see test_not_ported_recipe_entries_refused
+
+
+@pytest.fixture(scope="module")
+def template_outputs(inputs, tmp_path_factory):
+    """``examples/recipe_template.yml`` on the clip, with ``frames.to_video``, ``frames.to_geotiff``
+    and ``write_ugrid`` in the velocimetry and mask sections, through the port's service, the
+    port's CLI and JAX's service. The scene is the fixture's, placed in EPSG:32631 (the template
+    plots in geographical mode). The frames handed to each package's video writer are recorded.
+
+    The template gives its plot layer a ``mode`` of its own, which JAX's plot stage passes on
+    beside its plot-level ``mode`` and raises on (ROADMAP.md, queue C); JAX runs the same figure
+    with ``mode`` at the plot level, and the port runs the template as written."""
+    import yaml
+
+    folder = tmp_path_factory.mktemp("template_inputs")
+    cc = json.loads(open(inputs["cc"]).read())
+    cc["crs"] = 32631
+    cc["gcps"]["dst"] = [[X0 + x, Y0 + y] for x, y in cc["gcps"]["dst"]]
+    for k in ("is_nadir", "bbox"):
+        cc.pop(k, None)
+    cam = pyorc_tpu_torch.CameraConfig(**cc)
+    a = CAMERA["aoi_px"]
+    cam.set_bbox_from_corners([[a, a], [W - a, a], [W - a, H - a], [a, H - a]])
+    cam.to_file(str(folder / "camera_config.json"))
+    cross = json.loads(open(inputs["cross"]).read())
+    for feat in cross["features"]:
+        x, y, z = feat["geometry"]["coordinates"]
+        feat["geometry"]["coordinates"] = [X0 + x, Y0 + y, z]
+    (folder / "cross.geojson").write_text(json.dumps(cross))
+    recipe = yaml.safe_load(open(os.path.join(os.path.dirname(chip_smoke.__file__), "examples", "recipe_template.yml")))
+    recipe["video"] = {"start_frame": 0, "h_a": 0.0}  # the clip's frames and level
+    recipe["transect"]["transect_1"]["shapefile"] = str(folder / "cross.geojson")
+    recipe["frames"].update(to_video={}, to_geotiff={})
+    recipe["velocimetry"]["write_ugrid"] = True
+    recipe["mask"]["write_ugrid"] = True
+    jax_recipe = copy.deepcopy(recipe)
+    layer = jax_recipe["plot"]["plot_1"]
+    layer["mode"] = layer["velocimetry"].pop("mode")
+    fn_recipe = folder / "recipe.yml"
+    fn_recipe.write_text(json.dumps(recipe))
+    out = {"recipe": recipe, "frames": {}}
+    torch.set_num_threads(2)
+    pyorc_tpu_torch.set_device("cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PYORC_TPU_SHARD", "0")
+        mp.chdir(folder)
+        for name, native in (("torch", "pyorc_tpu_torch.io.native_decoder"), ("jax", "pyorc_tpu.io.native_decoder")):
+            out["frames"][name] = frames = []
+            real = __import__(native, fromlist=["NativeVideoWriter"]).NativeVideoWriter
+
+            class Spy(real):
+                def write(self, frame, frames=frames):
+                    frames.append(np.array(frame))
+                    super().write(frame)
+
+            mp.setattr(f"{native}.NativeVideoWriter", Spy)
+        cameraconfig = tcli.parse_camconfig(None, None, str(folder / "camera_config.json"))
+        for name, svc, cli_utils, rec in (("torch", tsvc, tcli, recipe), ("jax", jsvc, jcli, jax_recipe)):
+            out[name] = str(tmp_path_factory.mktemp(f"template_{name}"))
+            proc = svc.VelocityFlowProcessor(
+                recipe=cli_utils.validate_recipe(copy.deepcopy(rec)), videofile=inputs["clip"], cameraconfig=cameraconfig,
+                prefix="", output=out[name], h_a=0.0, logger=_Lines(),
+            )
+            proc.process()
+            out[f"{name}_proc"] = proc
+        out["cli"] = str(tmp_path_factory.mktemp("template_cli"))
+        result = CliRunner().invoke(tcli_main, ["velocimetry", "-V", inputs["clip"], "-c", str(folder / "camera_config.json"),
+                                                "-r", str(fn_recipe), "-h", "0.0", out["cli"]])
+        assert result.exit_code == 0, result.output
+    return out
+
+
+def _jpg_difference(a, b):
+    """(mean absolute difference, share of values more than 64 apart) of two JPEG figures' pixels."""
+    from PIL import Image
+
+    x = np.asarray(Image.open(a).convert("RGBA"), dtype=np.int16)
+    y = np.asarray(Image.open(b).convert("RGBA"), dtype=np.int16)
+    assert x.shape == y.shape and x.shape[0] > 100, (x.shape, y.shape)
+    d = np.abs(x - y)
+    return float(d.mean()), float((d > 64).mean())
+
+
+def _decode(fn):
+    import cv2
+
+    cap = cv2.VideoCapture(fn)
+    frames = []
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        frames.append(img)
+    cap.release()
+    return np.asarray(frames)
+
+
 @pytest.mark.parametrize(
     "section,key,value",
     [("plot", None, {"plot_1": {"mode": "local"}}), ("velocimetry", "write_ugrid", True),
      ("mask", "write_ugrid", True), ("frames", "to_video", {}), ("frames", "to_geotiff", {})],
     ids=["plot", "velocimetry-write_ugrid", "mask-write_ugrid", "to_video", "to_geotiff"],
 )
-def test_not_ported_recipe_entries_refused(inputs, tmp_path, section, key, value):
-    """What the port does not have yet is refused before any stage runs, naming ROADMAP.md."""
-    recipe = copy.deepcopy(inputs["recipe"])
-    if key is None:
-        recipe[section] = value
-    else:
-        recipe[section][key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 8"):
-        _run(tsvc, tcli, inputs, tmp_path, recipe=recipe)
-    assert not os.path.exists(os.path.join(tmp_path, "piv.nc"))
+def test_not_ported_recipe_entries_refused(template_outputs, section, key, value):
+    """The recipe entries the port once refused now run: ``examples/recipe_template.yml`` with
+    each of them (``template_outputs``), through the port's service and its CLI, writes JAX's
+    files. GeoTIFF: the same bytes. Video: the same uint8 frames handed to the H.264 writer and
+    a file that decodes to JAX's shape (x264's output for the same frames may vary from one
+    encoder run to the next, so the decoded pixels are not compared). UGRID: arrays within
+    2e-3 (m/s for the velocities; the two services' PIV fields agree to that, not to the bit),
+    NaNs in the same places, attributes equal but for the timestamps. The figure (a JPEG of
+    quivers over the time-mean field) may differ where an arrow's end moves by a fraction of a
+    pixel: its RGBA values within a mean of 0.5 of 255, and under 0.2 % of them more than 64
+    apart (``JPG_TOL``)."""
+    want_dir = template_outputs["jax"]
+    for got_dir in (template_outputs["torch"], template_outputs["cli"]):
+        files = set(os.listdir(got_dir)) - {"pyorc_tpu.log", "recipe.yml", "camera_config.json"}
+        assert files == set(os.listdir(want_dir)), (files, os.listdir(want_dir))
+        if section == "plot":
+            mean, share = _jpg_difference(os.path.join(got_dir, "plot_1.jpg"), os.path.join(want_dir, "plot_1.jpg"))
+            assert mean <= JPG_TOL["mean"] and share <= JPG_TOL["share_over_64"], (mean, share)
+        elif key == "write_ugrid":
+            fn = "piv_ugrid.nc" if section == "velocimetry" else "piv_mask_ugrid.nc"
+            got = pyorc_tpu_torch.open_dataset(os.path.join(got_dir, fn))
+            want = pyorc_tpu.open_dataset(os.path.join(want_dir, fn))
+            assert set(got.data_vars) == set(want.data_vars) and set(got.coords) == set(want.coords)
+            for k in list(want.data_vars) + list(want.coords):
+                a, b = np.asarray(got[k].values), np.asarray(want[k].values)
+                assert a.shape == b.shape and got[k].attrs == want[k].attrs, k
+                if a.dtype.kind == "f":
+                    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=k)
+                    assert np.nanmax(np.abs(a - b), initial=0.0) <= VEL_TOL, k
+                else:
+                    np.testing.assert_array_equal(a, b, err_msg=k)
+            stamps = ("date_created", "history")
+            assert {k: v for k, v in got.attrs.items() if k not in stamps} == {
+                k: v for k, v in want.attrs.items() if k not in stamps}
+        elif key == "to_video":  # H.264 files: the decoded shape here, the frames written below
+            got, want = _decode(os.path.join(got_dir, "processed_frames.mp4")), _decode(os.path.join(want_dir, "processed_frames.mp4"))
+            assert got.shape == want.shape and got.shape[0] >= 7, (got.shape, want.shape)
+        else:
+            got = open(os.path.join(got_dir, "frame_0000.tif"), "rb").read()
+            assert got == open(os.path.join(want_dir, "frame_0000.tif"), "rb").read()
+    if key == "to_video":  # the frames the port's service and CLI handed their writer: JAX's, byte for byte
+        recorded = template_outputs["frames"]
+        assert len(recorded["torch"]) == 16 and len(recorded["jax"]) == 8
+        for frames in (recorded["torch"][:8], recorded["torch"][8:]):
+            np.testing.assert_array_equal(np.stack(frames), np.stack(recorded["jax"]))
+    if section == "plot":  # the template's layer mode: the port runs it, JAX's stage raises
+        layer = template_outputs["recipe"]["plot"]["plot_1"]
+        assert layer["velocimetry"]["mode"] == "geographical"
+        with pytest.raises(TypeError, match="multiple values for keyword argument 'mode'"):
+            template_outputs["jax_proc"].plot(plot_1=copy.deepcopy(layer))
 
 
 def test_cli_refusals(inputs, tmp_path, monkeypatch):
-    """``--num-hosts`` > 1 and the interactive camera-config selectors refuse with a message."""
+    """``--num-hosts`` > 1 refuses with a message, and JAX's multi-host options are not options of the
+    port. (The interactive camera-config runs: ``tests/test_torch_cli_elements.py``.)"""
     monkeypatch.chdir(tmp_path)
     fn_recipe = tmp_path / "recipe.yml"
     fn_recipe.write_text(json.dumps(inputs["recipe"]))
@@ -389,11 +530,3 @@ def test_cli_refusals(inputs, tmp_path, monkeypatch):
             "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), *option, str(tmp_path / "out"),
         ])
         assert result.exit_code == 2 and "No such option" in result.output, (option, result.output)
-    dst = json.dumps([[0.3, 2.1], [2.9, 2.1], [2.9, 0.3], [0.3, 0.3]])
-    for extra, what in (([], "Interactive GCP selection"),
-                        (["--src", json.dumps([[30, 30], [290, 30], [290, 210], [30, 210]])], "Interactive AOI corner")):
-        result = CliRunner().invoke(tcli_main, [
-            "camera-config", "-V", inputs["clip"], "--dst", dst, "--z_0", "0", "--h_ref", "0", "--resolution", "0.01",
-            "--window_size", "32", *extra, str(tmp_path / "cc.json"),
-        ])
-        assert isinstance(result.exception, NotImplementedError) and what in str(result.exception), result.output
