@@ -77,6 +77,33 @@
    level within 0.25 m of 92.8 m with s2n above 1.2; the scorer's scores on
    the card equal to the port's CPU scores on the same mean frame; its device
    time (CUDA events), candidates and bytes up, and those of the grid search.
+5g. Multi-device (it runs after step 13, on the stacks the earlier steps hold):
+   (a) a mesh of every card where the machine has more than one, else 4
+   virtual shards of ``cuda:0``, printed with ``torch.cuda.device_count()``
+   and the card's name and power limit; (b) ``piv_pairs_sharded`` on the
+   1080p projected stack at 16 and 26 px (125 pairs as 32/32/32/29) equal to
+   the unsharded kernel, bitwise or within 1e-5 px (on windows whose top-2
+   peak gap exceeds 5e-3, at least 95 % of the finite ones; near-tie flips
+   elsewhere on at most 1e-5 of the windows), one launch a shard;
+   (c) ``piv_ensemble_sharded`` on the projected 4K stack at 64 px: counts
+   equal to the unsharded kernel's, ``corr_sum`` within 1e-5 relative, the
+   mean-plane displacements within 1e-3 px of step 12's, one launch a shard;
+   (d) ``piv_multipass_sharded`` (32 px, ``passes=3``) equal to step 6's
+   fields; (e) ``piv_pairs_sharded_2d`` on a (2, 2) mesh at 32 px on the
+   first 9 frames equal to the unsharded kernel; (f) ``get_piv`` with the
+   engine's mesh handed those shards (``_device.local_devices`` patched in
+   this script only) equal to step 4's 26 px dataset; (g) two processes
+   sharing the card: ``chip_smoke.py --segment-worker`` twice
+   (``process_segments_multihost`` over gloo on 127.0.0.1; the .npz segments
+   stitched in pair order equal the single-process kernel) and ``python3 -m
+   pyorc_tpu_torch.cli.main velocimetry ... --num-hosts 2 --host-id {0,1}
+   --coordinator 127.0.0.1:<port>`` on step 5d's clip and inputs (exit 0,
+   frames [0, 64) and [63, 126) in the logs, the per-pair kernel launched
+   in each host, host 0's ``manifest.json`` in the JAX package's schema);
+   (h) ``normalize`` -> ``project`` of step 4's 1080p camera frames with
+   ``local_devices`` handed the shards: batches split along time over them,
+   frames equal to step 4's projected stack.
+   Each sharded call's wall is printed beside the unsharded call's.
 6. Multipass slice: the same projected stack through get_piv(passes=3) at
    window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
@@ -2042,12 +2069,470 @@ def profile_slice(device, slice_shape, ens_shape, ens_camera=ENS_CAMERA, stiv_li
     return _stage_rows(prof, times), _span_rows(prof)
 
 
-def _print_card(torch):
-    smi = subprocess.run(
+# Step 5g, multi-device: virtual shards of one card where the machine has one
+MESH_SHARDS = 4
+SHARD_WINDOWS = (16, 26)  # per-pair windows of the sharded check (b), 50 % overlap
+MESH2D, MESH2D_WINDOW, MESH2D_FRAMES = (2, 2), 32, 9
+SHARD_TOL = 1e-5  # px where two runs are not bitwise equal
+# Gap-conditioned holds: the near-tie windows (top-2 peak gap at most 5e-3) may differ by
+# more than SHARD_TOL on at most SHARD_FLIPS_MAX of all windows, and the confident ones
+# must be at least SHARD_CONFIDENT_MIN of the finite windows, so the hold is never empty
+# (16 px windows read ~0.989 in the kernel check, ~0.967 on the tests' 240x320 stack)
+SHARD_CONFIDENT_MIN = 0.95
+SHARD_FLIPS_MAX = 1e-5
+
+
+def mesh_devices(device):
+    """Step 5g (a): the mesh's devices and what they are: every card where the machine
+    has more than one, else MESH_SHARDS virtual shards of ``device``."""
+    import torch
+
+    from pyorc_tpu_torch import _device
+
+    cards = _device.local_devices()
+    if len(cards) > 1:
+        return cards, f"{len(cards)} cards"
+    return [torch.device(device)] * MESH_SHARDS, f"{MESH_SHARDS} virtual shards of {device}"
+
+
+def _launched(kernel, run):
+    """(run(), the launches of ``kernel`` in that run), every launch count set to 0 just before it."""
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    for name in piv_kernels.LAUNCHES:
+        piv_kernels.LAUNCHES[name] = 0
+    out = run()
+    return out, piv_kernels.LAUNCHES[kernel]
+
+
+def _wall_ms(fn, reps=3):
+    """Median host wall [ms] of ``fn`` over ``reps`` runs after one warm-up; ``fn`` ends on the host."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def hold_sharded(got, want, label, gap=None, scale=1.0, tol=SHARD_TOL):
+    """Per-pair outputs (u, v, cmax, s2n; numpy) of a sharded run against the unsharded kernel's.
+
+    The per-pair kernel walks runs of consecutive pairs whose length follows
+    the launch's grid, and packs two frames into one transform, so a pair's
+    plane may round differently when the pairs are split another way, and a
+    near-tie peak may then flip. So: NaN masks equal; u, v (in px after
+    dividing by ``scale``) within ``tol`` on windows whose top-2 peak gap
+    ``gap`` exceeds 5e-3 (everywhere without ``gap``), and those confident
+    windows at least SHARD_CONFIDENT_MIN of the finite ones; at most
+    SHARD_FLIPS_MAX of all windows off by more than ``tol`` among the others;
+    cmax within ``tol``; s2n within ``tol`` relative. Returns what held;
+    raises otherwise.
+    """
+    got, want = [np.asarray(a) for a in got], [np.asarray(a) for a in want]
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"{label} output {k}: shapes {g.shape} vs {w.shape} or NaN masks differ")
+    d_uv = np.nan_to_num(np.maximum(np.abs(got[0] - want[0]), np.abs(got[1] - want[1])) / scale)
+    confident = np.ones(d_uv.shape, bool) if gap is None else np.asarray(gap).reshape(d_uv.shape) > 5e-3
+    finite = ~np.isnan(want[0])
+    out = {
+        "bitwise": all(np.array_equal(g, w, equal_nan=True) for g, w in zip(got, want)),
+        "max_abs_duv_px": float(d_uv[confident].max(initial=0.0)),
+        "confident_share": float((confident & finite).sum() / max(int(finite.sum()), 1)),
+        "near_tie_flips": int((d_uv[~confident] > tol).sum()),
+        "flips_allowed": int(SHARD_FLIPS_MAX * d_uv.size),
+        "max_abs_dcmax": float(np.nanmax(np.abs(got[2] - want[2]), initial=0.0)) if len(got) > 2 else 0.0,
+        "max_rel_ds2n": float(np.nanmax(np.abs(got[3] - want[3]) / np.maximum(1.0, np.abs(want[3])),
+                                        initial=0.0)) if len(got) > 3 else 0.0,
+    }
+    if (max(out["max_abs_duv_px"], out["max_abs_dcmax"], out["max_rel_ds2n"]) > tol
+            or out["confident_share"] < SHARD_CONFIDENT_MIN or out["near_tie_flips"] > out["flips_allowed"]):
+        raise AssertionError(f"{label}: sharded vs unsharded {out}")
+    return out
+
+
+def hold_sharded_ensemble(got, want, label, n_rows, n_cols, tol=SHARD_TOL):
+    """Ensemble outputs (corr_sum, corr_count, cmax, s2n) of a sharded run against the unsharded kernel's.
+
+    A shard's first frame may be transformed packed with another frame than
+    in one launch, so a pair's cmax or s2n may round differently and flip a
+    gate where it lies within 1e-5 of ``CORR_MIN`` (1e-4 relative of
+    ``S2N_MIN``); any other flip raises. On windows without a flip the counts
+    must be equal and corr_sum within ``tol`` of the largest sum (relative);
+    cmax and s2n within ``tol`` (s2n relative) on pairs gated alike, and the
+    mean-plane displacements within 1e-3 px where the plane's top-2 gap
+    exceeds 5e-3 and the count reaches ``COUNT_MIN`` of the pairs.
+    """
+    import torch
+
+    cs, cc, c_s, s_s = (torch.as_tensor(np.asarray(a)) for a in got)
+    sum_k, n_k, c_k, s_k = want
+    ok_s, ok_k = c_s > 0, c_k > 0
+    flip = ok_s != ok_k
+    cm, sn = torch.where(ok_k, c_k, c_s), torch.where(ok_k, s_k, s_s)
+    near = ((cm - CORR_MIN).abs() <= 1e-5) | ((sn - S2N_MIN).abs() <= 1e-4 * S2N_MIN)
+    if (flip & ~near).any():
+        raise AssertionError(f"{label}: {int((flip & ~near).sum())} gate flips away from the thresholds")
+    steady = ~flip.flatten(1).any(0)
+    d_sum = float((cs - sum_k).abs().flatten(1).amax(1)[steady].max() / sum_k.abs().max())
+    same = ~flip & ok_k
+    d_cmax = float((c_s - c_k).abs()[same].max())
+    rel_s2n = float(((s_s - s_k).abs() / s_k.clamp(min=1.0))[same].max())
+    u_s, v_s, _ = _mean_plane_uv(cs, cc, n_rows, n_cols)
+    u_k, v_k, gap = _mean_plane_uv(sum_k, n_k, n_rows, n_cols)
+    enough = (n_k >= COUNT_MIN * c_k.shape[0]).reshape(gap.shape)
+    confident = (gap > 5e-3) & enough & steady.reshape(gap.shape)
+    d_uv = float(torch.maximum((u_s - u_k).abs(), (v_s - v_k).abs())[confident].max())
+    if not torch.equal(cc[steady], n_k[steady]) or max(d_sum, d_cmax, rel_s2n) > tol or d_uv > 1e-3:
+        raise AssertionError(f"{label}: counts differ, or |d sum| {d_sum} rel, |d cmax| {d_cmax}, "
+                             f"rel d s2n {rel_s2n}, |d uv| {d_uv} px")
+    return {"counts": "equal" if torch.equal(cc, n_k) else "equal on windows without a gate flip",
+            "gate_flips": int(flip.sum()), "max_rel_dsum": d_sum, "max_abs_dcmax": d_cmax,
+            "max_rel_ds2n": rel_s2n, "max_abs_duv_px": d_uv}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_together(argvs, folder, device, timeout=300, extra_logs=()):
+    """Start every argv at once as a child process (output to ``folder/<i>.out``) and wait for all;
+    returns (wall [s], outputs). As soon as one child fails, or after ``timeout`` s, every child still
+    running is killed, and this raises with each child's exit code and the end of its output and of
+    each file of ``extra_logs`` (a process that waits at a barrier for a failed one would wait on)."""
+    env = dict(os.environ, PYORC_TPU_TORCH_DEVICE=str(device))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every process is on this machine
+    folder.mkdir(parents=True, exist_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as files:
+        outs = [files.enter_context(open(folder / f"{i}.out", "w+")) for i in range(len(argvs))]
+        try:
+            for argv, out in zip(argvs, outs):
+                procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() for p in procs) or time.perf_counter() - t0 > timeout:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        texts = []
+        for out in outs:
+            out.seek(0)
+            texts.append(out.read())
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        report = [f"children exited {codes} after {wall:.1f} s (timeout {timeout} s)"]
+        report += [f"--- child {i}: {' '.join(map(str, argv[3:]))}\n{text[-2500:]}"
+                   for i, (argv, text) in enumerate(zip(argvs, texts))]
+        report += [f"--- {path}\n{Path(path).read_text()[-2500:]}" for path in extra_logs if Path(path).exists()]
+        print("\n".join(report), flush=True)
+        raise AssertionError(report[0])
+    return wall, texts
+
+
+def multihost_cli(clip, fn_cc, fn_recipe, out, device, n_hosts=2, extra=()):
+    """``python3 -m pyorc_tpu_torch.cli.main velocimetry ... --num-hosts N --host-id I --coordinator
+    127.0.0.1:<port>`` for every I at once. Each must exit 0 and log its frame range; host 0's manifest
+    must be the JAX package's schema for the clip's frame count. Returns (wall [s], each host's log
+    text, the manifest)."""
+    import shutil
+
+    import cv2
+
+    from pyorc_tpu_torch.parallel import distributed
+
+    shutil.rmtree(out, ignore_errors=True)
+    port = _free_port()
+    argvs = [
+        [sys.executable, "-m", "pyorc_tpu_torch.cli.main", "velocimetry", "-V", str(clip), "-c", str(fn_cc),
+         "-r", str(fn_recipe), *extra, "--num-hosts", str(n_hosts), "--host-id", str(i),
+         "--coordinator", f"127.0.0.1:{port}", str(out)]
+        for i in range(n_hosts)
+    ]
+    wall, _ = _run_together(argvs, Path(str(out) + "_children"), device,
+                            extra_logs=[Path(out) / f"host{i:03d}_pyorc_tpu.log" for i in range(n_hosts)])
+    cap = cv2.VideoCapture(str(clip))
+    n_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    segs = distributed.segment_frame_ranges(n_frames, n_hosts)
+    logs = []
+    for i, (s, e) in enumerate(segs):
+        text = (Path(out) / f"host{i:03d}_pyorc_tpu.log").read_text()
+        if f"Host {i}/{n_hosts}: frames [{s}, {e})" not in text:
+            raise AssertionError(f"host {i}'s log names no frame range [{s}, {e}): {text[-2000:]}")
+        logs.append(text)
+    manifest = json.loads((Path(out) / "manifest.json").read_text())
+    want = {"num_processes": n_hosts, "n_frames": n_frames, "segments": {
+        str(i): {"start_frame": s, "end_frame": e, "prefix": f"host{i:03d}_", "artifact": f"host{i:03d}_piv.nc"}
+        for i, (s, e) in enumerate(segs)
+    }}
+    if manifest != want:
+        raise AssertionError(f"manifest {manifest} is not {want}")
+    return wall, logs, manifest
+
+
+def host_launches(log_text):
+    """The kernel launches a ``--num-hosts`` host logged after its pipeline."""
+    found = re.search(r"kernel launches (\{.*\})", log_text)
+    if not found:
+        raise AssertionError("the host logged no kernel launches")
+    return json.loads(found.group(1))
+
+
+def segment_worker(argv):
+    """Worker mode, one process of :func:`two_process_segments`:
+
+        python3 chip_smoke.py --segment-worker PID NPROC PORT FRAMES.npy OUTDIR WINDOW DEVICE
+
+    joins the gloo group at 127.0.0.1:PORT, runs the per-pair kernel (``piv_pairs_fused``) at
+    WINDOW px, 50 % overlap, on its segment of FRAMES.npy through
+    ``distributed.process_segments_multihost`` and writes u, v, cmax, s2n as .npz."""
+    import torch
+
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch.ops import piv_kernels
+    from pyorc_tpu_torch.parallel import distributed
+
+    pid, nproc, port = int(argv[0]), int(argv[1]), argv[2]
+    frames_npy, outdir, window, device = argv[3], argv[4], int(argv[5]), argv[6]
+    pyorc_tpu_torch.set_device(device)
+    got = distributed.init_distributed(f"127.0.0.1:{port}", nproc, pid)
+    if got != (pid, nproc):
+        raise AssertionError(f"init_distributed gave {got}, not {(pid, nproc)}")
+    frames = np.load(frames_npy, mmap_mode="r")
+    args = _grid(frames.shape[1:], window)
+
+    def run_segment(start, end, out_path):
+        seg = torch.from_numpy(np.array(frames[start:end])).to(device)  # a copy: the memory map is read-only
+        out = [o.cpu().numpy() for o in piv_kernels.piv_pairs_fused(seg, *args)]
+        with open(out_path, "wb") as f:
+            np.savez(f, u=out[0], v=out[1], cmax=out[2], s2n=out[3], launches=piv_kernels.LAUNCHES["piv_pairs"])
+
+    out = distributed.process_segments_multihost(frames.shape[0], run_segment, outdir)
+    print(f"segment worker {pid}/{nproc}: {out}", flush=True)
+    return 0
+
+
+def two_process_segments(frames, folder, window, device, n_proc=2):
+    """Two processes of :func:`segment_worker` on ``frames`` (a host [T, H, W] stack) at once; their
+    segments stitched in pair order. Returns (wall [s], (u, v, cmax, s2n), launches per process, manifest)."""
+    import shutil
+
+    folder = Path(folder)
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    np.save(folder / "frames.npy", np.ascontiguousarray(frames))
+    port = _free_port()
+    argvs = [
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--segment-worker", str(i), str(n_proc), str(port),
+         str(folder / "frames.npy"), str(folder / "out"), str(window), str(device)]
+        for i in range(n_proc)
+    ]
+    wall, _ = _run_together(argvs, folder / "children", device)
+    manifest = json.loads((folder / "out" / "manifest.json").read_text())
+    if manifest["num_processes"] != n_proc or manifest["n_frames"] != frames.shape[0]:
+        raise AssertionError(f"segments manifest {manifest}")
+    parts, launches = [], []
+    for i in range(n_proc):
+        seg = manifest["segments"][str(i)]
+        with np.load(folder / "out" / seg["artifact"]) as z:
+            parts.append([z[k] for k in ("u", "v", "cmax", "s2n")])
+            launches.append(int(z["launches"]))
+        if parts[-1][0].shape[0] != seg["end_frame"] - 1 - seg["start_frame"]:
+            raise AssertionError(f"segment {i} holds {parts[-1][0].shape[0]} pairs for frames {seg}")
+    stitched = tuple(np.concatenate(column, axis=0) for column in zip(*parts))
+    return wall, stitched, launches, manifest
+
+
+def multidevice_phase(proj, piv26, mp_piv32, ens_proj, device, folder, clip=None, cli_wall=None, raw=None,
+                      samples=15):
+    """Step 5g: the sharded paths of :mod:`pyorc_tpu_torch.parallel` on the stacks the earlier steps
+    hold, each held to the unsharded kernel's result, and (with ``raw``, the camera frames that
+    ``normalize(samples)`` and ``project`` made ``proj`` from) the in-memory filters split along time;
+    returns (results, walls [ms or s], launches)."""
+    from unittest import mock
+
+    import torch
+
+    from pyorc_tpu_torch import _device, parallel
+    from pyorc_tpu_torch.api import frames as frames_api
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    on_card = torch.device(device).type == "cuda"
+    route = "cuda" if on_card else "plain_cpu"
+    devices, kind = mesh_devices(device)
+    print(f"multi-device mesh: {kind} (torch.cuda.device_count() {torch.cuda.device_count()}); "
+          f"{_card_line()}", flush=True)
+    mesh = parallel.make_mesh(devices)
+    results, walls, launches = {"mesh": kind}, {}, {}
+
+    def unsharded_pairs(frames, args):
+        return [o.cpu().numpy() for o in piv_kernels.piv_pairs_fused(frames, *args)]
+
+    frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
+    n_shards = len(parallel.piv._pair_shards(frames.shape[0] - 1, len(devices)))
+    for w_px in SHARD_WINDOWS:  # (b) per-pair
+        args = _grid(frames.shape[1:], w_px)
+        label = f"sharded per-pair {w_px} px"
+        want = unsharded_pairs(frames, args)
+        got, n = _launched("piv_pairs", lambda: parallel.piv_pairs_sharded(frames, args[1], args[2], mesh=mesh))
+        if n != n_shards * on_card or piv_kernels.KERNEL_ROUTE["piv_pairs_fused"] != route:
+            raise AssertionError(f"{label}: {n} launches for {n_shards} shards")
+        results[label] = hold_sharded(got, want, label, gap=_pairs_gap(frames, args).cpu().numpy())
+        launches[label] = n
+        walls[label] = {
+            "sharded_ms": _wall_ms(lambda: parallel.piv_pairs_sharded(frames, args[1], args[2], mesh=mesh)),
+            "unsharded_ms": _wall_ms(lambda: unsharded_pairs(frames, args)),
+        }
+
+    dt = np.diff(proj["time"].values)[:, None, None]  # (d) multipass, against step 6's fields
+    label = "sharded multipass 32 px x3"
+    args = _grid(frames.shape[1:], 32)
+    (u, v, _, _), n = _launched("piv_pairs", lambda: parallel.piv_multipass_sharded(
+        frames, args[1], args[2], mesh=mesh, passes=3))
+    if n != 3 * n_shards * on_card:
+        raise AssertionError(f"{label}: {n} launches for 3 passes on {n_shards} shards")
+    scale = RES / dt
+    got = [(u * scale).astype(np.float32), (v * scale).astype(np.float32)]
+    # every pass runs one pair a block (pair_stride 2), however the pairs are split: held on every window
+    results[label] = hold_sharded(got, [mp_piv32["v_x"].values, mp_piv32["v_y"].values], label, scale=scale)
+    launches[label] = n
+    walls[label] = {"sharded_ms": _wall_ms(lambda: parallel.piv_multipass_sharded(
+        frames, args[1], args[2], mesh=mesh, passes=3), reps=1)}
+
+    label = f"sharded 2-D {MESH2D} {MESH2D_WINDOW} px"  # (e)
+    head = frames[:MESH2D_FRAMES]
+    args = _grid(head.shape[1:], MESH2D_WINDOW)
+    mesh2d = parallel.piv.Mesh(np.asarray((devices * MESH_SHARDS)[:MESH2D[0] * MESH2D[1]], dtype=object)
+                               .reshape(MESH2D), ("pairs", "rows"))
+    want = unsharded_pairs(head, args)
+    got, n = _launched("piv_pairs", lambda: parallel.piv_pairs_sharded_2d(head, args[1], args[2], mesh=mesh2d))
+    if n != MESH2D[0] * MESH2D[1] * on_card:
+        raise AssertionError(f"{label}: {n} launches on a {MESH2D} mesh")
+    results[label] = hold_sharded(got, want, label, gap=_pairs_gap(head, args).cpu().numpy())
+    launches[label] = n
+    walls[label] = {
+        "sharded_ms": _wall_ms(lambda: parallel.piv_pairs_sharded_2d(head, args[1], args[2], mesh=mesh2d)),
+        "unsharded_ms": _wall_ms(lambda: unsharded_pairs(head, args)),
+    }
+
+    if raw is not None:  # (h) the in-memory filters: each batch split along time over the shards
+        label = "time-sharded normalize -> project"
+        splits = {"normalize": [], "project": []}
+        real = frames_api._time_sharded
+
+        def counted(op):
+            def run(fn, chunk, devs):
+                splits[op].append(len(devs))
+                return real(fn, chunk, devs)
+
+            return mock.patch.object(frames_api, "_time_sharded", run)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(_device, "local_devices", lambda: list(devices)):
+            with counted("normalize"):
+                norm = raw.frames.normalize(samples=samples)
+            with counted("project"):
+                got = norm.frames.project()
+        sharded_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw.frames.normalize(samples=samples).frames.project()
+        walls[label] = {"sharded_s": sharded_s, "unsharded_s": time.perf_counter() - t0}
+        if not all(len(devices) in n for n in splits.values()):
+            raise AssertionError(f"{label}: a filter split no batch over the {len(devices)} shards: {splits}")
+        if got.dims != proj.dims or not np.array_equal(got.values, proj.values):
+            raise AssertionError(f"{label}: the frames differ from the unsharded ones")
+        results[label] = {"frames": "equal", "shards_per_batch": splits}
+        del norm, got
+
+    label = "engine route get_piv 26 px"  # (f): the engine's mesh is these shards, here only
+    t0 = time.perf_counter()
+    with mock.patch.object(_device, "local_devices", lambda: list(devices)):
+        run = lambda: proj.frames.get_piv(window_size=25, overlap=(13, 13))  # noqa: E731
+        piv, n = _drive(piv_kernels, "piv_pairs", run) if on_card else _launched("piv_pairs", run)
+    walls[label] = {"sharded_s": time.perf_counter() - t0}
+    if n < n_shards * on_card:
+        raise AssertionError(f"{label}: {n} launches for {n_shards} shards")
+    names = ("v_x", "v_y", "corr", "s2n")
+    results[label] = hold_sharded([piv[k].values for k in names], [piv26[k].values for k in names], label,
+                                  gap=_pairs_gap(frames, _grid(frames.shape[1:], 26)).cpu().numpy(), scale=RES / dt)
+    launches[label] = n
+    del frames, head
+
+    if ens_proj is not None:  # (c) ensemble
+        frames = torch.as_tensor(np.ascontiguousarray(ens_proj.values)).to(device)
+        args = _grid(frames.shape[1:], ENS_WINDOW)
+        label = f"sharded ensemble {ENS_WINDOW} px"
+        n_ens_shards = len(parallel.piv._pair_shards(frames.shape[0] - 1, len(devices)))
+        want = piv_kernels.piv_ensemble_fused(frames, *args, CORR_MIN, S2N_MIN)
+        got, n = _launched("piv_ensemble", lambda: parallel.piv_ensemble_sharded(
+            frames, args[1], args[2], mesh=mesh, corr_min=CORR_MIN, s2n_min=S2N_MIN))
+        if n != n_ens_shards * on_card or piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] != route:
+            raise AssertionError(f"{label}: {n} launches for {n_ens_shards} shards")
+        results[label] = hold_sharded_ensemble(got, [w.cpu() for w in want], label, args[3], args[4])
+        launches[label] = n
+        walls[label] = {
+            "sharded_ms": _wall_ms(lambda: parallel.piv_ensemble_sharded(
+                frames, args[1], args[2], mesh=mesh, corr_min=CORR_MIN, s2n_min=S2N_MIN)),
+            "unsharded_ms": _wall_ms(lambda: [o.cpu() for o in piv_kernels.piv_ensemble_fused(
+                frames, *args, CORR_MIN, S2N_MIN)]),
+        }
+        del frames, want
+
+    # (g) two processes sharing the card: the CLI, and the segments' velocities
+    label = "two processes: segments 26 px"
+    frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
+    args = _grid(frames.shape[1:], 26)
+    wall, stitched, seg_launches, _ = two_process_segments(proj.values, folder / "multihost_segments", 26, device)
+    if min(seg_launches) < on_card:
+        raise AssertionError(f"{label}: a process launched no kernel ({seg_launches})")
+    results[label] = hold_sharded(stitched, unsharded_pairs(frames, args), label,
+                                  gap=_pairs_gap(frames, args).cpu().numpy())
+    launches[label] = sum(seg_launches)
+    walls[label] = {"two_processes_s": wall, "unsharded_ms": _wall_ms(lambda: unsharded_pairs(frames, args))}
+    del frames
+    if clip is not None:
+        label = "two processes: CLI --num-hosts 2"
+        wall, logs, manifest = multihost_cli(clip, folder / "camera_config.json", folder / "recipe.yml",
+                                             folder / "multihost_out", device, extra=("-h", str(H_A), "--cross",
+                                             str(folder / "cross_section.geojson")))
+        host = [host_launches(text)["piv_pairs"] for text in logs]
+        if min(host) < on_card:
+            raise AssertionError(f"{label}: a host launched no per-pair kernel ({host})")
+        results[label] = {"segments": {k: [v["start_frame"], v["end_frame"]] for k, v in manifest["segments"].items()},
+                          "launches_per_host": host}
+        launches[label] = sum(host)
+        walls[label] = {"two_processes_s": wall, "one_process_cli_s": cli_wall}
+    else:
+        print("two-process CLI not run: no lossless clip (see step 5c)")
+    return results, walls, launches
+
+
+def _card_line():
+    """The card's name and power limit as ``nvidia-smi`` gives them ("nvidia-smi absent" without it)."""
+    import shutil
+
+    if shutil.which("nvidia-smi") is None:
+        return "nvidia-smi absent"
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(smi)
+
+
+def _print_card(torch):
+    print(_card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2080,6 +2565,8 @@ def _drive(piv_kernels, kernel, run):
 def main(argv) -> int:
     import torch
 
+    if argv[:1] == ["--segment-worker"]:
+        return segment_worker(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU.", file=sys.stderr)
         return 1
@@ -2139,6 +2626,7 @@ def main(argv) -> int:
           "stages " + json.dumps(lazy_rows))
     print("lazy chain results " + json.dumps(lazy_results), flush=True)
     video_launches = service_launches = outputs_launches = 0
+    clip = cli_wall = None
     if probe.get("cv2_video_io") == "FFV1 round trip exact":
         clip = write_clip(stack, ROOT / "build" / "smoke_1080p.avi")
         t0 = time.perf_counter()
@@ -2177,7 +2665,6 @@ def main(argv) -> int:
               f"from its log " + json.dumps(out_walls))
         print("recipe outputs per new stage (wall_s, bytes h2d / d2h) " + json.dumps(out_rows))
         print("recipe outputs results " + json.dumps(out_results), flush=True)
-        clip.unlink()
         wl = water_level_phase(ROOT / "build", device)
         print("optical water level on a 1920x1080 FFV1 clip of the Geul scene (service.get_water_level): "
               + json.dumps(wl), flush=True)
@@ -2186,7 +2673,8 @@ def main(argv) -> int:
         print(f"video chain, service, CLI, recipe outputs and optical water level not run: OpenCV cannot "
               f"round-trip a lossless clip here ({why})")
     print(host_only_outputs(), flush=True)
-    del pivs, stack
+    piv26 = pivs[26]  # for step 5g
+    del pivs  # the stack stays for step 5g (h)
 
     t0 = time.perf_counter()
     (mp_results, mp_times, mp_pivs), mp_launches = _drive(
@@ -2201,6 +2689,7 @@ def main(argv) -> int:
     print("multipass slice results " + json.dumps(mp_results))
     print("single-pass slice results beside them " + json.dumps(results))
     mp_main = {w_px: multipass_main_path_check(proj, mp_pivs[w_px], device, w_px) for w_px in mp_pivs}
+    mp_piv32 = mp_pivs[32]  # for step 5g
     del mp_pivs
 
     t0 = time.perf_counter()
@@ -2229,7 +2718,7 @@ def main(argv) -> int:
     print(f"STIV phase on the projected stack: wall {wall:.3f} s; stages [ms] "
           + json.dumps({k: {m: round(x, 3) for m, x in row.items()} for k, row in _stage_rows(prof, stiv_times).items()}))
     print("STIV results " + json.dumps(stiv_results), flush=True)
-    del proj, prof
+    del prof
 
     h, w = ENS_SHAPE
     ens_stack = advected_stack(h, w, ENS_FRAMES, device)
@@ -2272,7 +2761,22 @@ def main(argv) -> int:
           f"{wide_launches} launches; stages " + json.dumps({k: round(v, 4) for k, v in wide_times.items()}))
     print("wide ensemble slice results " + json.dumps(wide_results))
     wide_main = ensemble_main_path_check(ens_proj, wide_piv, device, ENS_WIDE_WINDOW)
-    del ens_proj, wide_piv
+    del wide_piv
+
+    t0 = time.perf_counter()
+    md_results, md_walls, md_launches = multidevice_phase(
+        proj, piv26, mp_piv32, ens_proj, device, ROOT / "build", clip=clip, cli_wall=cli_wall,
+        raw=frames_dataarray(stack, nadir_camera_config(1080, 1920)),
+    )
+    print(f"multi-device step 5g: wall {time.perf_counter() - t0:.3f} s; launches " + json.dumps(md_launches))
+    print("multi-device walls (virtual shards of one card run one after another: the split's cost, not a "
+          "speed-up) " + json.dumps(md_walls))
+    print("multi-device results " + json.dumps(md_results), flush=True)
+    if clip is not None:
+        clip.unlink()
+    del ens_proj, proj, piv26, mp_piv32, stack
+    md_pairs = sum(n for k, n in md_launches.items() if "ensemble" not in k)
+    md_ens = sum(n for k, n in md_launches.items() if "ensemble" in k)
 
     main_size = 16
     coarse = mp_main[32]["passes"][0]  # the 128 px pass
@@ -2282,7 +2786,7 @@ def main(argv) -> int:
             "name": "piv_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_pairs.cu",
             "replaces": "pyorc_tpu/ops/piv_pallas.py:957",
             "launches": pairs_launches + mp_launches + ns_launches + lazy_launches + video_launches + service_launches
-            + outputs_launches,
+            + outputs_launches + md_pairs,
             "max_abs_err": max(
                 e["max_abs_duv_px"] for e in [*kern.values(), *main_errs.values(), *mp_main.values(), ns_main]
             ),
@@ -2294,12 +2798,13 @@ def main(argv) -> int:
             f"launches_{ns}px": ns_launches, f"ms_{ns}px": ns_main["ms"], f"plain_ms_{ns}px": ns_main["plain_ms"],
             f"bound_ms_{ns}px": ns_main["bound_ms"], f"bound_by_{ns}px": ns_main["bound_by"],
             "launches_lazy": lazy_launches, "launches_video": video_launches, "launches_service": service_launches,
-            "launches_outputs": outputs_launches,
+            "launches_outputs": outputs_launches, "launches_multidevice": md_pairs,
         },
         {
             "name": "piv_ensemble", "route": "cuda", "source": "pyorc_tpu_torch/csrc/piv_ensemble.cu",
             "replaces": "pyorc_tpu/ops/piv_pallas.py:1297",
-            "launches": ens_launches + wide_launches + lazy_ens_launches, "launches_lazy": lazy_ens_launches,
+            "launches": ens_launches + wide_launches + lazy_ens_launches + md_ens, "launches_lazy": lazy_ens_launches,
+            "launches_multidevice": md_ens,
             "max_abs_err": max(e["max_abs_duv_px"] for e in [*ens_kern.values(), ens_main, wide_main]),
             "ms": ens_main["ms"], "plain_ms": ens_main["plain_ms"],
             "bound_ms": ens_main["bound_ms"], "bound_by": ens_main["bound_by"], "library_ms": None,

@@ -9,6 +9,10 @@ nothing quietly carries on without the card.
 Frames, index maps and results cross between host and device through
 :func:`to_device`, :func:`to_host` and :class:`PinnedUploader`, which add the
 bytes they move to :data:`COPY_BYTES`.
+
+:func:`local_devices` lists the devices a mesh of this process may use
+(:mod:`pyorc_tpu_torch.parallel`): every visible card, or on the CPU as many
+CPU shards as ``PYORC_TPU_CPU_DEVICES`` asks for.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["set_device", "get_device", "to_device", "to_host", "torch_dtype", "PinnedUploader", "COPY_BYTES"]
+__all__ = ["set_device", "get_device", "local_devices", "to_device", "to_host", "torch_dtype", "PinnedUploader", "COPY_BYTES"]
 
 _device: Optional[torch.device] = None
 
@@ -58,6 +62,26 @@ def get_device() -> torch.device:
             "Call pyorc_tpu_torch.set_device('cpu'), or set PYORC_TPU_TORCH_DEVICE=cpu, to run on the CPU."
         )
     return device
+
+
+def local_devices() -> list:
+    """The devices of this process's mesh, counterpart of ``jax.local_devices()``.
+
+    Where :func:`get_device` is a CUDA device: every visible card
+    (``torch.cuda.device_count()``). On the CPU: ``PYORC_TPU_CPU_DEVICES``
+    (default 1) copies of the CPU device, as the JAX package's
+    ``PYORC_TPU_CPU_DEVICES`` gives XLA that many virtual CPU devices. A
+    repeated device is a virtual shard: its shards run one after another.
+    ``PYORC_TPU_SHARD=0`` gives :func:`get_device` alone.
+    """
+    device = get_device()
+    if os.environ.get("PYORC_TPU_SHARD", "1") == "0":
+        return [device]
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if device.type == "cpu":
+        return [device] * int(os.environ.get("PYORC_TPU_CPU_DEVICES") or 1)
+    return [device]
 
 
 def _count(direction: str, n_bytes: int) -> None:

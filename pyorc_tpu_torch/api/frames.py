@@ -6,7 +6,10 @@ or RGB, for two kinds of frame stack:
 - in memory (numpy): each op uploads the stack to the device (per-frame ops
   in batches), runs there as PyTorch ops (:mod:`pyorc_tpu_torch.ops.filters`,
   :mod:`pyorc_tpu_torch.ops.ortho`, :mod:`pyorc_tpu_torch.ops.stiv`), and
-  returns host arrays;
+  returns host arrays. Where :func:`pyorc_tpu_torch._device.local_devices`
+  gives more than one device and a batch's frame count is a multiple of
+  their number, a per-frame op splits the batch over them along time and
+  gathers the parts in order (the JAX package's ``_put_time_sharded``);
 - lazy, from ``Video.get_frames`` (:class:`pyorc_tpu_torch.api.video.LazyFrames`):
   the per-frame ops (filters, ``project``) are appended to the stack's op
   chain and run per batch on the device after one upload of the decoded
@@ -37,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import const, helpers, ndx
+from .. import _device, const, helpers, ndx
 from .._device import get_device, to_device, to_host, torch_dtype
 from ..ops import filters as flt
 from ..ops import ortho as ortho_ops
@@ -82,6 +85,33 @@ class ChainOp:
             return self.fn(batch)
 
 
+class PerDevice:
+    """A constant of a per-frame op (normalize's mean image, project's index maps) on
+    each device the op runs on: made with ``make(device)`` once per device, first on
+    ``device``."""
+
+    def __init__(self, make, device):
+        self._make = make
+        self._made = {}
+        self(device)
+
+    def __call__(self, device):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._made:
+            self._made[device] = self._make(device)
+        return self._made[device]
+
+
+def _time_sharded(fn, chunk, devices) -> list:
+    """``fn`` over ``chunk`` split along time into equal parts, one on each of ``devices``;
+    the results on the host, in order (all launched before the first comes down)."""
+    k = chunk.shape[0] // len(devices)
+    parts = [fn(to_device(chunk[i * k : (i + 1) * k], device)) for i, device in enumerate(devices)]
+    return [to_host(part) for part in parts]
+
+
 @ndx.register_dataarray_accessor("frames")
 class Frames(ORCBase):
     """Frame-stack functionality on an ndx.DataArray."""
@@ -109,12 +139,19 @@ class Frames(ORCBase):
         A lazy stack stays lazy: the op joins its chain (see :class:`ChainOp`
         for ``halo``) and the result has dtype ``out_dtype`` (default: the
         stack's). An in-memory stack is mapped in device batches and comes
-        back as a host array.
+        back as a host array; where there is more than one local device and a
+        batch's frame count is a multiple of their number, the batch is split
+        over them along time.
         """
         data = self._obj.data
         if isinstance(data, LazyFrames):
             return data.with_op(ChainOp(fn, name, halo), dtype=out_dtype)
-        return np.concatenate([to_host(fn(chunk)) for chunk in self._device_batches(batch)], axis=0)
+        devices = _device.local_devices()
+        outs = []
+        for start in range(0, data.shape[0], batch):
+            chunk = data[start : start + batch]
+            outs += _time_sharded(fn, chunk, devices if chunk.shape[0] % len(devices) == 0 else [get_device()])
+        return np.concatenate(outs, axis=0)
 
     def _whole_on_device(self) -> torch.Tensor:
         """The whole stack on the device, for the ops that reduce or difference over time."""
@@ -153,12 +190,13 @@ class Frames(ORCBase):
         if time_interval == 0:
             raise ValueError(f"Amount of frames is too small to provide {samples} samples")
         sampled = np.asarray(self._obj.data[::time_interval]).astype(np.float32)
-        mean = to_device(sampled.mean(axis=0).astype(np.float32))
+        mean_host = sampled.mean(axis=0).astype(np.float32)
+        mean = PerDevice(lambda device: to_device(mean_host, device), get_device())
         # each frame's rescale extrema are taken on the device over the whole
         # frame, so a lazy chain with normalize uploads whole frames (halo
         # None): at 4K this streams 6x faster than the JAX package's extrema
         # on the host with a cropped upload (PERF.md §6)
-        out = self._map_device(lambda f: flt.normalize_with_mean(f, mean), "normalize")
+        out = self._map_device(lambda f: flt.normalize_with_mean(f, mean(f.device)), "normalize")
         return self._with_data(out)
 
     def edge_detect(self, wdw_1: int = 1, wdw_2: int = 2) -> ndx.DataArray:
@@ -264,13 +302,13 @@ class Frames(ORCBase):
                 if (r1 - r0) * (c1 - c0) <= 0.95 * h * w:
                     maps = ortho_ops.crop_maps(maps, r0, c0, r1 - r0, c1 - c0)
                     crop = (r0, r1, c0, c1)
-        dmaps = ortho_ops.device_maps(maps, get_device())
+        dmaps = PerDevice(lambda device: ortho_ops.device_maps(maps, device), get_device())
 
         def project_chunk(f):
             if is_rgb:
-                bands = [ortho_ops.project_batch(f[..., b], maps, dmaps) for b in range(f.shape[-1])]
+                bands = [ortho_ops.project_batch(f[..., b], maps, dmaps(f.device)) for b in range(f.shape[-1])]
                 return torch.stack(bands, dim=-1)
-            return ortho_ops.project_batch(f, maps, dmaps)
+            return ortho_ops.project_batch(f, maps, dmaps(f.device))
 
         if lazy:
             if crop is not None:

@@ -104,8 +104,8 @@ def validate_file(ctx, param, value):
 
 
 def validate_dir(ctx, param, value):
-    if not os.path.isdir(value):
-        os.makedirs(value)
+    # exist_ok: the processes of a --num-hosts run may create the output directory together
+    os.makedirs(value, exist_ok=True)
     return value
 
 

@@ -4,14 +4,22 @@ The JAX package's CLI (:mod:`pyorc_tpu.cli.main`, a port of reference
 ``pyorc/cli/main.py:41-402``) on the port's service. ``camera-config`` opens
 the interactive selectors (:mod:`pyorc_tpu_torch.cli.cli_elements`, matplotlib)
 for GCPs without ``--src``, AOI corners without ``--corners`` on an oblique
-camera, and ``--stabilize``. ``velocimetry --num-hosts > 1`` is refused with a
-message (ROADMAP.md, queue A item 9). The commands compute on
+camera, and ``--stabilize``. The commands compute on
 ``pyorc_tpu_torch.get_device()``: the card, unless ``PYORC_TPU_TORCH_DEVICE``
 names another device.
+
+``velocimetry --num-hosts N --host-id I --coordinator HOST:PORT`` runs one of
+N cooperating processes (one a host, or one a card): each takes its own frame
+segment of the video (a one-frame halo, :func:`pyorc_tpu_torch.parallel.distributed.segment_frame_ranges`),
+writes its outputs and log under the prefix ``host000_``, ``host001_``, ..., and
+``torch.distributed`` (gloo, TCP to the coordinator) serves for the closing
+barrier only; host 0 then writes ``manifest.json``, the segments and their
+artifacts in pair order.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional
 
@@ -247,26 +255,52 @@ def camera_config(
     "--num-hosts",
     type=int,
     default=1,
-    help="Multi-host run: only 1 is accepted (multi-device is ROADMAP.md, queue A item 9).",
+    help="Multi-host run: total number of cooperating hosts. Each host "
+    "processes its own frame segment (one-frame halo) of the video; host 0 "
+    "writes a manifest for stitching.",
+)
+@click.option("--host-id", type=int, default=None, help="This host's id (0-based) in a --num-hosts run")
+@click.option(
+    "--coordinator",
+    type=str,
+    default=None,
+    help="torch.distributed (gloo) coordinator address (host:port) for --num-hosts runs",
 )
 @verbose_opt
 @click.pass_context
 def velocimetry(
     ctx, output, videofile, recipe, cameraconfig, prefix, h_a, cross, cross_wl, update,
-    num_hosts, verbose,
+    num_hosts, host_id, coordinator, verbose,
 ):
     """Estimate surface velocities and discharge from a video using a recipe."""
     from .. import service
 
-    if num_hosts > 1:
-        raise click.UsageError(
-            "--num-hosts > 1 is not ported to pyorc_tpu_torch: the JAX package coordinates hosts through "
-            "jax.distributed (pyorc_tpu/cli/main.py:270-311), and the port's multi-device form is "
-            "ROADMAP.md, queue A item 9."
-        )
     log_level = max(10, 20 - 10 * verbose)
-    logger = log.setuplog("velocimetry", os.path.join(output, "pyorc_tpu.log"), append=False, log_level=log_level)
+    user_prefix = prefix
+    if num_hosts > 1:
+        # outer parallelism: this host runs the standard pipeline on its own
+        # frame segment; torch.distributed coordinates only
+        import cv2
+
+        from ..parallel import distributed as dist
+
+        pid, nproc = dist.init_distributed(coordinator, num_hosts, host_id)
+        cap = cv2.VideoCapture(videofile)
+        n_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        start, end = dist.segment_frame_ranges(n_frames, nproc)[pid]
+        recipe.setdefault("video", {})
+        recipe["video"]["start_frame"] = int(start)
+        recipe["video"]["end_frame"] = int(end) - 1
+        prefix = f"{user_prefix}host{pid:03d}_"
+    # hosts share the output dir, so the log file carries the host prefix too
+    logger = log.setuplog(
+        "velocimetry", os.path.join(output, f"{prefix if num_hosts > 1 else ''}pyorc_tpu.log"),
+        append=False, log_level=log_level,
+    )
     logger.info(f"Preparing your velocimetry result in {output}")
+    if num_hosts > 1:
+        logger.info(f"Host {pid}/{nproc}: frames [{start}, {end}) -> prefix {prefix}")
     service.velocity_flow(
         recipe=recipe,
         videofile=videofile,
@@ -279,6 +313,21 @@ def velocimetry(
         update=update,
         logger=logger,
     )
+    if num_hosts > 1:
+        from ..ops import piv_kernels
+
+        logger.info(f"Host {pid}/{nproc}: kernel launches {json.dumps(piv_kernels.LAUNCHES)}")
+        dist.barrier("pipeline-done")
+        if pid == 0:
+            segs = dist.segment_frame_ranges(n_frames, num_hosts)
+            dist.write_segments_manifest(
+                output, n_frames, segs,
+                lambda i, s, e: {
+                    "prefix": f"{user_prefix}host{i:03d}_",
+                    "artifact": f"{user_prefix}host{i:03d}_piv.nc",
+                },
+            )
+            logger.info("Multi-host manifest written to manifest.json")
 
 
 if __name__ == "__main__":

@@ -176,6 +176,7 @@ def piv_multipass(
     n_cols: int,
     passes: int = 2,
     signal_threshold: Optional[float] = None,
+    engine: str = "auto",
 ):
     """Multi-pass PIV: frames [T, H, W] -> (u, v, corr_max, s2n), each [T-1, n_rows, n_cols].
 
@@ -192,7 +193,12 @@ def piv_multipass(
     windows the same placeholder before the median test, so the predictor is
     the cascade's; the last pass keeps NaN where the cascade reports the
     placeholder (ROADMAP.md, queue C).
+
+    ``engine`` picks each pass's correlation by the JAX package's names
+    (:func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_engine`): ``"auto"``
+    is :func:`~pyorc_tpu_torch.ops.piv_kernels.piv_pairs_routed`.
     """
+    correlate = piv_kernels.piv_pairs_engine(engine)
     dim_size = tuple(dim_size)
     h, w = dim_size
     schedule = multipass_window_sizes(tuple(win._as2(window_size)), passes)
@@ -217,9 +223,7 @@ def piv_multipass(
             pairs = _deformed_pairs(a_stack, b_stack, u, v, rows_prev, cols_prev)
             u_pred = _grid_to_grid(u, rows_prev, cols_prev, rows_k, cols_k)
             v_pred = _grid_to_grid(v, rows_prev, cols_prev, rows_k, cols_k)
-        du, dv, cmax, s2n = piv_kernels.piv_pairs_routed(
-            pairs, dim_size, ws, ov, nr_k, nc_k, signal_threshold, pair_stride=2
-        )
+        du, dv, cmax, s2n = correlate(pairs, dim_size, ws, ov, nr_k, nc_k, signal_threshold, pair_stride=2)
         del pairs
         last = k == len(schedule) - 1
         if signal_threshold is not None and not last:

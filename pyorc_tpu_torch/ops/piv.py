@@ -38,6 +38,19 @@ __all__ = [
 ]
 
 
+def _strided_axis_starts(starts: np.ndarray, w: int):
+    """The grid step if ``starts`` form an arithmetic grid whose step divides
+    ``w`` (an int), else None."""
+    if len(starts) < 2:
+        return None
+    step = int(starts[1] - starts[0])
+    if step <= 0 or not np.all(np.diff(starts) == step):
+        return None
+    if w % step != 0:
+        return None
+    return step
+
+
 def extract_windows(frames: torch.Tensor, row0: np.ndarray, col0: np.ndarray, wy: int, wx: int) -> torch.Tensor:
     """Gather interrogation windows: frames [..., H, W] -> [..., n_rows*n_cols, wy, wx].
 

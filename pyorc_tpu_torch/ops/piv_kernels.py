@@ -81,6 +81,8 @@ __all__ = [
     "piv_ensemble_fused_plain",
     "piv_pairs_routed",
     "piv_ensemble_routed",
+    "piv_pairs_engine",
+    "piv_ensemble_engine",
     "kernel_takes",
     "KERNEL_ROUTE",
     "LAUNCHES",
@@ -452,4 +454,71 @@ def piv_ensemble_routed(
     KERNEL_ROUTE["piv_ensemble_fused"] = "torch_ops"
     return piv_ops.piv_ensemble_scan(
         imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
+    )
+
+
+# The JAX package's engine names (the ``engine`` argument of ``pyorc_tpu.parallel``)
+ENGINES = ("auto", "xla", "fused", "fused-interpret")
+
+
+def _card_only(fn):
+    """``fn`` for frames on a CUDA device; frames anywhere else raise (engine ``"fused"``)."""
+
+    @functools.wraps(fn)
+    def run(imgs, *args, **kwargs):
+        if imgs.device.type != "cuda":
+            raise RuntimeError(f'engine="fused" launches the CUDA kernel; the frames are on {imgs.device}')
+        return fn(imgs, *args, **kwargs)
+
+    return run
+
+
+def _engine(engine: str, routed, fused, plain, ops):
+    if engine == "auto":
+        return routed
+    if engine == "xla":
+        return ops
+    if engine == "fused":
+        return _card_only(fused)
+    if engine == "fused-interpret":
+        return plain
+    raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+
+
+def _pairs_torch_ops(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, pair_stride=1):
+    KERNEL_ROUTE["piv_pairs_fused"] = "torch_ops"
+    return piv_ops.piv_pairs(
+        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, signal_threshold, pair_stride
+    )
+
+
+def _ensemble_torch_ops(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min=0.2, s2n_min=3.0,
+                        signal_threshold=None):
+    KERNEL_ROUTE["piv_ensemble_fused"] = "torch_ops"
+    return piv_ops.piv_ensemble_scan(
+        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
+    )
+
+
+def piv_pairs_engine(engine: str = "auto"):
+    """The per-pair function that one of the JAX package's ``engine`` names selects.
+
+    ``"auto"``: :func:`piv_pairs_routed` (the CUDA kernel on the card for
+    sides of 8-128 px, the plain tensor ops by plan otherwise; the plain
+    version on a CPU tensor). ``"xla"``: the XLA pipeline's semantics,
+    :func:`pyorc_tpu_torch.ops.piv.piv_pairs` (route ``"torch_ops"``).
+    ``"fused"``: :func:`piv_pairs_fused`, which raises for frames off the
+    card. ``"fused-interpret"``: the kernel's plain version,
+    :func:`piv_pairs_fused_plain`. Each takes the arguments of
+    :func:`piv_pairs_fused`.
+    """
+    return _engine(engine, piv_pairs_routed, piv_pairs_fused, piv_pairs_fused_plain, _pairs_torch_ops)
+
+
+def piv_ensemble_engine(engine: str = "auto"):
+    """The ensemble function that ``engine`` selects, as :func:`piv_pairs_engine`:
+    :func:`piv_ensemble_routed`, :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`,
+    :func:`piv_ensemble_fused` (the card only) or :func:`piv_ensemble_fused_plain`."""
+    return _engine(
+        engine, piv_ensemble_routed, piv_ensemble_fused, piv_ensemble_fused_plain, _ensemble_torch_ops
     )

@@ -11,7 +11,25 @@ pass) or, with ``ensemble_corr=True``, the ensemble contract through
 on the GPU for windows with sides of 8-128 px; larger windows go to the
 plain tensor ops by plan, as in the JAX package), and a device out-of-memory
 error splits the chunk in two.
-It runs on one device; multi-device sharding is ROADMAP.md, queue A item 9.
+
+Where :func:`pyorc_tpu_torch._device.local_devices` gives more than one
+device (several cards, or ``PYORC_TPU_CPU_DEVICES`` CPU shards), each chunk
+is sharded over them along the pair axis (:mod:`pyorc_tpu_torch.parallel`),
+as the JAX package shards over its devices: multipass through
+``piv_multipass_sharded``, a chunk with fewer pairs than devices through the
+2-D (pairs, rows) mesh of ``piv_pairs_sharded_2d`` where ``_plan_mesh2d``
+picks one and the window grid is uniform, other chunks through
+``piv_pairs_sharded``, ensemble chunks through ``piv_ensemble_sharded``; an
+automatic chunk size grows with the device count. One device runs the
+chunk as it is, on :func:`~pyorc_tpu_torch._device.get_device`.
+
+Every route takes the plan above (engine "auto" of
+:mod:`pyorc_tpu_torch.parallel.piv`). Unlike the JAX package, the engine
+reads no ``PYORC_TPU_ENGINE``: that variable steers the JAX package, and the
+port's tests set it in the same process to do so; the other engines are the
+``engine`` argument of the sharded functions. ``PYORC_TPU_PROFILE=<dir>``
+wraps the PIV loop in ``torch.profiler`` and writes a Chrome trace into
+``<dir>``.
 
 As in the JAX package, the ensemble ``count_min`` filter compares pair
 counts against ``count_min * n_pairs`` of the whole stack (the parameter's
@@ -20,14 +38,17 @@ documented meaning), not the reference's chunk-dependent count.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import time
 import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import ndx
+from .. import _device, ndx, parallel
 from .._device import get_device, to_device, to_host
 from ..api.video import LazyFrames
 from ..ops import multipass
@@ -56,6 +77,53 @@ def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chun
     if chunksize < 2:
         raise OverflowError("Chunk size must be at least 2 frames.")
     return int(chunksize)
+
+
+def _plan_mesh2d(n_pairs: int, n_rows: int, n_dev: int):
+    """Pick a (pairs, rows) mesh split, or None for the 1-D pairs mesh.
+
+    The pair axis is the natural shard dimension; only when a chunk has too
+    few pairs to occupy every device does the window-grid row axis take the
+    remainder (large rasters, short pair batches). Returns (dp, dr) with
+    dp * dr == n_dev and dr > 1, or None. ``PYORC_TPU_MESH2D`` overrides:
+    "0" disables, an integer forces dr; other values keep the automatic choice.
+    """
+    forced = os.environ.get("PYORC_TPU_MESH2D")
+    if forced:
+        try:
+            dr = int(forced)
+        except ValueError:
+            dr = None  # non-integer values keep auto behavior
+        if dr is not None:
+            if dr > 1 and n_dev % dr == 0:
+                return (n_dev // dr, dr)
+            return None
+    if n_pairs >= n_dev:
+        return None
+    # largest divisor of n_dev that the pair count can still fill
+    dp = max(d for d in range(1, n_dev + 1) if n_dev % d == 0 and d <= max(n_pairs, 1))
+    dr = n_dev // dp
+    if dr <= 1 or n_rows < dr:
+        return None
+    return (dp, dr)
+
+
+@contextlib.contextmanager
+def _maybe_profile():
+    """``torch.profiler`` around the PIV loop when ``PYORC_TPU_PROFILE=<dir>``: a
+    Chrome trace (``piv_trace_<pid>_<ns>.json``, for Perfetto or chrome://tracing)
+    is written into ``<dir>``. Counterpart of the JAX package's ``jax.profiler.trace``."""
+    trace_dir = os.environ.get("PYORC_TPU_PROFILE")
+    if not trace_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"piv_trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def _concat_pairs(left, right):
@@ -143,27 +211,51 @@ def get_piv(
     sas = tuple(win._as2(search_area_size))
     ov = tuple(win._as2(overlap))
     n_rows, n_cols = len(y), len(x)
+    auto_chunk = chunksize is None
     chunksize = _chunk_plan(n_frames, dim_size, window_size, ov, sas, chunksize, memory_factor)
-    if ensemble_corr:
-        return _piv_ensemble(
+    devices = _device.local_devices()
+    if auto_chunk and len(devices) > 1:
+        # the memory model is per device; a sharded chunk splits over the
+        # mesh, so each device still gets a worthwhile pair batch
+        chunksize = min(n_frames, chunksize * len(devices))
+    with _maybe_profile():
+        if ensemble_corr:
+            return _piv_ensemble(
+                frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
+                chunksize, corr_min, s2n_min, count_min, signal_threshold, frames.attrs, devices,
+            )
+        return _piv_timestep(
             frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-            chunksize, corr_min, s2n_min, count_min, signal_threshold, frames.attrs,
+            chunksize, signal_threshold, frames.attrs, passes, devices,
         )
-    return _piv_timestep(
-        frames.data, frames["time"].values, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-        chunksize, signal_threshold, frames.attrs, passes,
-    )
 
 
 def _piv_timestep(
     data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-    chunksize, signal_threshold, attrs, passes=1,
+    chunksize, signal_threshold, attrs, passes, devices,
 ):
     device = get_device()
     dt_vals = np.asarray(dt.values if hasattr(dt, "values") else dt, dtype=np.float64)
     n_pairs = data.shape[0] - 1
 
+    def run_sharded(chunk):
+        mesh = parallel.make_mesh(devices)
+        if passes > 1:
+            return parallel.piv_multipass_sharded(
+                chunk, sas, ov, sas, mesh=mesh, passes=passes, signal_threshold=signal_threshold
+            )
+        plan = _plan_mesh2d(chunk.shape[0] - 1, n_rows, len(devices))
+        # the 2-D mesh cuts row slabs on window boundaries: a uniform grid only
+        if plan is not None and parallel.piv.row_step(dim_size, sas, ov) is not None:
+            mesh2d = parallel.piv.Mesh(np.asarray(devices, dtype=object).reshape(plan), ("pairs", "rows"))
+            return parallel.piv_pairs_sharded_2d(
+                chunk, sas, ov, sas, mesh=mesh2d, signal_threshold=signal_threshold
+            )
+        return parallel.piv_pairs_sharded(chunk, sas, ov, sas, mesh=mesh, signal_threshold=signal_threshold)
+
     def run_one(chunk):
+        if len(devices) > 1:
+            return run_sharded(chunk)
         frames = to_device(chunk, device)
         if passes > 1:
             out = multipass.piv_multipass(
@@ -200,12 +292,17 @@ def _merge_ensemble(left, right):
 
 def _piv_ensemble(
     data, time_all, y, x, dt, res_y, res_x, n_rows, n_cols, dim_size, sas, ov,
-    chunksize, corr_min, s2n_min, count_min, signal_threshold, attrs,
+    chunksize, corr_min, s2n_min, count_min, signal_threshold, attrs, devices,
 ):
     device = get_device()
     n_pairs_total = data.shape[0] - 1
 
     def run_one(chunk):
+        if len(devices) > 1:
+            return parallel.piv_ensemble_sharded(
+                chunk, sas, ov, sas, mesh=parallel.make_mesh(devices), corr_min=corr_min, s2n_min=s2n_min,
+                signal_threshold=signal_threshold,
+            )
         cs, cc, cmax, s2n = piv_kernels.piv_ensemble_routed(
             to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
         )

@@ -197,6 +197,28 @@ def test_outputs_without_host_libraries(tmp_path):
     """)
 
 
+def test_parallel_runs_without_jax_and_starts_no_process_group():
+    """``pyorc_tpu_torch.parallel`` imports and runs with jax, cv2 and h5py blocked; importing the
+    package starts no ``torch.distributed`` process group, nor does a one-process ``init_distributed``."""
+    _run_without(("jax", "jaxlib", "cv2", "h5py"), """
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        import pyorc_tpu_torch
+        import pyorc_tpu_torch.parallel
+        from pyorc_tpu_torch.parallel import distributed, piv
+        import chip_smoke
+
+        assert not torch.distributed.is_initialized()
+        pyorc_tpu_torch.set_device("cpu")
+        stack = chip_smoke.advected_stack(96, 128, 5, "cpu")
+        mesh = piv.make_mesh([torch.device("cpu")] * 3)
+        u, v, cmax, s2n = piv.piv_pairs_sharded(stack, (32, 32), (16, 16), mesh=mesh)
+        assert u.shape == (4, 5, 7) and np.isfinite(cmax).all()
+        assert distributed.init_distributed() == (0, 1) and not torch.distributed.is_initialized()
+    """)
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     """Source check: no module of the port, and not chip_smoke.py, imports jax or pyorc_tpu."""
     offenders = []

@@ -12,7 +12,8 @@ velocities) and Q within 1 %: the north star's check. Then the port alone:
 through ``CliRunner`` and as a child process (``PYORC_TPU_TORCH_DEVICE=cpu``),
 ``camera-config`` against JAX's JSON, the optical water level (``--cross_wl``)
 on a small scene against JAX's, ``examples/recipe_template.yml`` with every output entry
-(the figure, UGRID, the video, a GeoTIFF) against JAX's files, and ``--num-hosts``.
+(the figure, UGRID, the video, a GeoTIFF) against JAX's files, and ``--num-hosts 2`` as two
+processes whose segments stitch to the one-host result.
 """
 
 import copy
@@ -514,19 +515,64 @@ def test_not_ported_recipe_entries_refused(template_outputs, section, key, value
             template_outputs["jax_proc"].plot(plot_1=copy.deepcopy(layer))
 
 
+def test_validate_dir_when_hosts_race(tmp_path, monkeypatch):
+    """The processes of a ``--num-hosts`` run start together on one output directory: one may create it
+    between another's check and its own ``makedirs``. The port's ``validate_dir`` then goes on (the JAX
+    package's raises FileExistsError: ROADMAP.md, queue C)."""
+    real = os.makedirs
+
+    def racing(path, *args, **kwargs):
+        real(path, exist_ok=True)  # the other host creates the directory first
+        return real(path, *args, **kwargs)
+
+    monkeypatch.setattr(os, "makedirs", racing)
+    assert tcli.validate_dir(None, None, str(tmp_path / "port")) == str(tmp_path / "port")
+    with pytest.raises(FileExistsError):
+        jcli.validate_dir(None, None, str(tmp_path / "jax"))
+
+
 def test_cli_refusals(inputs, tmp_path, monkeypatch):
-    """``--num-hosts`` > 1 refuses with a message, and JAX's multi-host options are not options of the
-    port. (The interactive camera-config runs: ``tests/test_torch_cli_elements.py``.)"""
+    """``--num-hosts 2 --host-id {0,1} --coordinator 127.0.0.1:<port>``: two CLI processes on the CPU
+    (``PYORC_TPU_TORCH_DEVICE=cpu``, gloo) each run their frame segment of the clip and write
+    ``host00<i>_piv.nc``; stitched in pair order they equal the one-host ``piv.nc`` of the whole clip,
+    and host 0's ``manifest.json`` is what JAX's CLI writes. ``--lowmem`` is still not an option of the
+    port. (The name is kept from when ``--num-hosts`` > 1 was refused.) The recipe has no ``normalize``:
+    its mean image is taken over a host's own segment, so the segments would not stitch to one run."""
+    from pyorc_tpu.cli import main as jmain
+    from pyorc_tpu.parallel import distributed as jdist
+
     monkeypatch.chdir(tmp_path)
+    recipe = copy.deepcopy(inputs["recipe"])
+    recipe["video"] = {"start_frame": 0, "end_frame": N - 1, "h_a": 0.0}
+    del recipe["frames"]["normalize"]
+    for section in ("mask", "transect", "stiv"):
+        recipe.pop(section, None)
     fn_recipe = tmp_path / "recipe.yml"
-    fn_recipe.write_text(json.dumps(inputs["recipe"]))
+    fn_recipe.write_text(json.dumps(recipe))
+    one = tmp_path / "one"
     result = CliRunner().invoke(tcli_main, [
-        "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), "--num-hosts", "2",
-        str(tmp_path / "out"),
+        "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), str(one),
     ])
-    assert result.exit_code != 0 and "jax.distributed" in result.output and "queue A item 9" in result.output
-    for option in (["--lowmem"], ["--host-id", "1"], ["--coordinator", "localhost:1234"]):  # no option without effect
-        result = CliRunner().invoke(tcli_main, [
-            "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), *option, str(tmp_path / "out"),
-        ])
-        assert result.exit_code == 2 and "No such option" in result.output, (option, result.output)
+    assert result.exit_code == 0, result.output
+    out = tmp_path / "two"
+    _, logs, manifest = chip_smoke.multihost_cli(inputs["clip"], inputs["cc"], fn_recipe, out, "cpu")
+    assert [chip_smoke.host_launches(text) for text in logs] == [{"piv_pairs": 0, "piv_ensemble": 0}] * 2  # the CPU
+    assert [seg["end_frame"] for seg in manifest["segments"].values()] == [5, N]
+    want = tmp_path / "jax_manifest"
+    want.mkdir()
+    segs = jdist.segment_frame_ranges(N, 2)  # the entry of pyorc_tpu/cli/main.py:299-307
+    jdist.write_segments_manifest(want, N, segs, lambda i, s, e: {"prefix": f"host{i:03d}_", "artifact": f"host{i:03d}_piv.nc"})
+    assert (out / "manifest.json").read_text() == (want / "manifest.json").read_text()
+    helps = [CliRunner().invoke(cli, ["velocimetry", "--help"]).output for cli in (tcli_main, jmain.cli)]
+    for option in ("--num-hosts", "--host-id", "--coordinator"):
+        assert all(option in text for text in helps), option
+    whole = pyorc_tpu_torch.open_dataset(str(one / "piv.nc"))
+    parts = [pyorc_tpu_torch.open_dataset(str(out / f"host{i:03d}_piv.nc")) for i in range(2)]
+    assert [p["v_x"].shape[0] for p in parts] == [4, 3]
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        stitched = np.concatenate([p[name].values for p in parts], axis=0)
+        np.testing.assert_array_equal(stitched, whole[name].values, err_msg=name)
+    result = CliRunner().invoke(tcli_main, [
+        "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), "--lowmem", str(tmp_path / "x"),
+    ])
+    assert result.exit_code == 2 and "No such option" in result.output, result.output
