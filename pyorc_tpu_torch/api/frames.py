@@ -260,7 +260,8 @@ class Frames(ORCBase):
         projection (reference frames.py:199-277, project.py:164-230); here
         the per-frame work is a gather on the device, band by band for RGB
         frames [time, y, x, rgb]. ``method="cv"`` (the reference's OpenCV
-        warp) raises: this package has no OpenCV path.
+        warp) runs the same index-map projection, as the JAX package runs it
+        (:func:`pyorc_tpu_torch.project.project_cv` is the same alias).
 
         On a lazy stack the projection joins the op chain. When every op
         already on it declares a ``halo``, each decoded batch is cropped on
@@ -268,9 +269,7 @@ class Frames(ORCBase):
         the maps are rebased onto it: the same pixels out, fewer bytes up.
         ``PYORC_TPU_NO_UPLOAD_CROP=1`` turns the crop off.
         """
-        if method == "cv":
-            raise NotImplementedError('project(method="cv") is not supported by pyorc_tpu_torch; use method="numpy".')
-        if method != "numpy":
+        if method not in ("numpy", "cv"):
             raise ValueError(f"Selected projection method {method} does not exist.")
         cc = copy.deepcopy(self.camera_config)
         if resolution is not None:
@@ -361,12 +360,16 @@ class Frames(ORCBase):
         self,
         window_size=None,
         overlap=None,
+        engine: str = "jax",
         ensemble_corr: bool = False,
         **kwargs,
     ) -> ndx.Dataset:
         """PIV over projected frames -> Dataset(v_x, v_y, corr, s2n).
 
-        Reference frames.py:114-197. ``kwargs`` go to
+        Reference frames.py:114-197. ``engine`` takes the JAX package's names,
+        "jax", "numba" and "numpy" (the last two the reference's, for its
+        recipes); each runs this package's own route, as the JAX package runs
+        its own, and any other name raises ``ValueError``. ``kwargs`` go to
         :func:`pyorc_tpu_torch.velocimetry.get_piv` (``chunksize``,
         ``memory_factor``, ``signal_threshold``, ``passes``, and for
         ``ensemble_corr=True`` the gates ``corr_min``, ``s2n_min`` and
@@ -379,6 +382,10 @@ class Frames(ORCBase):
         """
         from .. import velocimetry as engine_mod
 
+        if engine not in ("jax", "numba", "numpy"):
+            raise ValueError(f"Selected PIV engine {engine} does not exist.")
+        if engine != "jax":
+            logger.debug("engine=%r is accepted for recipe compatibility but runs this package's route.", engine)
         camera_config = copy.deepcopy(self.camera_config)
         dt = self._obj["time"].diff(dim="time")
         if window_size is not None:

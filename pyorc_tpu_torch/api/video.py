@@ -146,10 +146,18 @@ class LazyFrames:
             if end >= n:
                 break
             start = end - overlap
+        yield from self.iter_ranges(ranges, prefetch)
+
+    def iter_ranges(self, ranges, prefetch: int = 2):
+        """Yield (start, batch) for each frame range [start, end) of ``ranges``, in
+        order, as :meth:`iter_batches` does; where a range starts before the
+        previous one ends, the frames they share are reused, not decoded again."""
         uploader = None
         if self._ops and get_device().type == "cuda":
             uploader = PinnedUploader(get_device())
-        tail = None  # the previous batch's last `overlap` frames; the worker thread alone touches it
+        tail = None  # the previous batch's frames from the next range's start on; the worker thread alone touches it
+        bounds = list(ranges)
+        next_starts = iter([a for a, _ in bounds[1:]] + [None])  # the worker reads the ranges in order
 
         def batch(a, b):
             nonlocal tail
@@ -157,10 +165,11 @@ class LazyFrames:
             out = self.read_batch(a + reused, b, uploader)
             if reused:
                 out = torch.cat([tail, out]) if torch.is_tensor(out) else np.concatenate([tail, out])
-            tail = out[out.shape[0] - overlap :] if overlap else None
+            nxt = next(next_starts)
+            tail = out[nxt - a :] if nxt is not None and nxt < b else None
             return a, out
 
-        yield from vr.BatchPrefetcher(batch, ranges, depth=prefetch)
+        yield from vr.BatchPrefetcher(batch, bounds, depth=prefetch)
 
     def __array__(self, dtype=None, copy=None):
         out = np.empty(self.shape, dtype=self.dtype)

@@ -252,6 +252,11 @@ def camera_config(
 )
 @click.option("-u", "--update", is_flag=True, default=False, help="Only update changed stages (hash cache)")
 @click.option(
+    "--lowmem", is_flag=True, default=False,
+    help="Reduce memory usage (synchronous processing); accepted as the JAX package accepts it, the stages "
+    "run one after another either way",
+)
+@click.option(
     "--num-hosts",
     type=int,
     default=1,
@@ -270,7 +275,7 @@ def camera_config(
 @click.pass_context
 def velocimetry(
     ctx, output, videofile, recipe, cameraconfig, prefix, h_a, cross, cross_wl, update,
-    num_hosts, host_id, coordinator, verbose,
+    lowmem, num_hosts, host_id, coordinator, verbose,
 ):
     """Estimate surface velocities and discharge from a video using a recipe."""
     from .. import service
@@ -311,6 +316,7 @@ def velocimetry(
         cross=cross,
         cross_wl=cross_wl,
         update=update,
+        concurrency=not lowmem,
         logger=logger,
     )
     if num_hosts > 1:

@@ -58,10 +58,6 @@ constexpr int kPlanFloats = 32;      // start of a block's shared memory, kept f
 constexpr int kMaxSmem = 232448;     // dynamic shared memory a Hopper block may have
 constexpr int kPointsPerThread = 8;  // of a line, where the block has threads for that
 constexpr int kThreadsPerSM = 512;   // that share an SM: 128 registers a thread (fewer cost spills at 26-64 px)
-#ifndef PIV_SMS
-#define PIV_SMS 132
-#endif
-constexpr int kSMs = PIV_SMS;  // of an H100 SXM, for sizing grids
 
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -22,15 +22,24 @@
 // order, one layout for every side (piv_common.cuh). The work is that of the
 // FFT the bound counts, one forward and one inverse complex 2-D transform per
 // two pairs:
-//   - two real windows per forward transform: frames f and f + 1 go in as
-//     z = a + i b and their spectra A, B are separated by Hermitian symmetry;
-//     B (a half spectrum, wy (wx / 2 + 1) complex values in shared memory) is
-//     cached as P for the pair that straddles two steps, so each frame is
-//     transformed once (what B4's `share_fwd` does on the TPU, :1117-1148);
+//   - two real windows per forward transform: frames 2j and 2j + 1 (absolute
+//     indices in the whole stack) go in as z = a + i b and their spectra A, B
+//     are separated by Hermitian symmetry; B (a half spectrum, wy (wx / 2 + 1)
+//     complex values in shared memory) is cached as P for the pair that
+//     straddles two steps, so each frame is transformed once (what B4's
+//     `share_fwd` does on the TPU, :1117-1148);
 //   - two correlation planes per inverse transform: X1 = conj(P) A and X2 =
 //     conj(A) B are Hermitian, so the inverse of X1 + i X2 has pair (f - 1,
 //     f)'s plane in its real part and pair (f, f + 1)'s in its imaginary part.
-//     The first step has no P and an odd tail no b: that plane is skipped.
+//     The stack's first step has no P and an odd tail no b: that plane is
+//     skipped. Every packing partner of a pair is fixed by its absolute index,
+//     so its plane, its cmax, s2n and gate are the same bits whichever split
+//     of the stack into launches computed it (corr_sum of a split is a sum of
+//     partial sums). A launch is told the absolute index of its first frame
+//     and the pairs it adds; it reads up to two frames before its first pair
+//     and one after its last (the halo, ops/piv_kernels.py::Span.cut); a
+//     launch that starts inside a couple starts at the next one, whose step
+//     only fills the cache.
 //   - statistics, gate and sum run per plane in pair order, as the scan's do.
 //     Each thread owns fixed elements of the window (tid, tid + threads, ...)
 //     and keeps their gated sum in registers for the whole launch (32 floats
@@ -60,19 +69,21 @@ namespace {
 
 using namespace piv;
 
-// Window (r, c) of frame f starts at frames[f][r * step_y][c * step_x];
-// pair p correlates frames p and p + 1. Outputs: sum_out [n_win, wy, wx]
-// (fftshifted), count_out [n_win], cmax_out and s2n_out [n_frames - 1, n_win].
+// Window (r, c) of frame f starts at frames[f - frame0][r * step_y][c * step_x]
+// (absolute frame indices; the launch holds frames frame0 .. frame0 + n_frames
+// - 1); pair p correlates frames p and p + 1. The launch adds pairs pair0 ..
+// pair0 + n_pairs - 1. Outputs: sum_out [n_win, wy, wx] (fftshifted),
+// count_out [n_win], cmax_out and s2n_out [n_pairs, n_win] (row p - pair0).
 // kAcc: the window pixels a thread owns, at most. With `cached` a step takes
 // two frames and L.extra holds the half spectrum; without, one pair. WY > 0: L
 // is the constant layout of WY x WX windows.
 template <typename T, int kAcc, int WY, int WX>
 __device__ __forceinline__ void ensemble_block(
     const T* __restrict__ frames, int H, int W, const Layout& L, bool cached, int step_y, int step_x,
-    int n_cols, int n_frames, float corr_min, float s2n_min, int has_thr, float thr,
-    const float* __restrict__ cos_y, const float* __restrict__ sin_y, const float* __restrict__ cos_x,
-    const float* __restrict__ sin_x, float* __restrict__ sum_out, float* __restrict__ count_out,
-    float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
+    int n_cols, int frame0, int n_frames, int pair0, int n_pairs, float corr_min, float s2n_min,
+    int has_thr, float thr, const float* __restrict__ cos_y, const float* __restrict__ sin_y,
+    const float* __restrict__ cos_x, const float* __restrict__ sin_x, float* __restrict__ sum_out,
+    float* __restrict__ count_out, float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
     extern __shared__ float smem[];
     const Smem S(smem, L);
     const int wy = L.wy, wx = L.wx, ld = L.ld, N = wy * wx;
@@ -109,23 +120,27 @@ __device__ __forceinline__ void ensemble_block(
             count += 1.f;
         }
         if (tid == 0) {
-            const size_t o = static_cast<size_t>(pair) * n_win + win;
+            const size_t o = static_cast<size_t>(pair - pair0) * n_win + win;
             cmax_out[o] = ok ? cmax : 0.f;
             s2n_out[o] = ok ? s2n : 0.f;
         }
     };
 
+    // cached: steps at the even frames, from the first couple the launch holds
+    // whole, up to the last pair's; else one pair a step
+    const int end = pair0 + n_pairs, last = frame0 + n_frames - 1;
+    const int first_step = cached ? frame0 + (frame0 & 1) : pair0;
     WinStat prev{0.f, 0.f};
-    for (int f = 0; f + (cached ? 0 : 1) < n_frames; f += cached ? 2 : 1) {
-        const T* fa = src + static_cast<size_t>(f) * frame_px;
-        const bool has_b = f + 1 < n_frames, use_prev = cached && f > 0;
+    for (int f = first_step; cached ? f <= end : f < end; f += cached ? 2 : 1) {
+        const T* fa = src + static_cast<size_t>(f - frame0) * frame_px;
+        const bool has_b = f + 1 <= last, use_prev = cached && f > first_step;
         WinStat a, b;
         load_windows(fa, has_b ? fa + frame_px : nullptr, W, S, L, a, b);
         transform_2d<WY, WX>(false);
         cross_spectra(S, L, Pr, Pi, use_prev, has_b);
         transform_2d<WY, WX>(true);  // the inverse: the planes unshifted in Zr and Zi
-        if (use_prev) gate_add(S.Zr, f - 1, prev, a);
-        if (has_b) gate_add(S.Zi, f, a, b);
+        if (use_prev && f - 1 >= pair0) gate_add(S.Zr, f - 1, prev, a);
+        if (has_b && f >= pair0 && f < end) gate_add(S.Zi, f, a, b);
         prev = b;
         __syncthreads();  // the planes are accumulated before the next step overwrites them
     }
@@ -145,8 +160,8 @@ __global__ void __launch_bounds__(
     WY ? make_layout(WY ? WY : 8, WX ? WX : 8, 0).nt : kMaxThreads,
     WY ? blocks_per_sm(make_layout(WY ? WY : 8, WX ? WX : 8, half_spectrum(WY, WX))) : 1)
     piv_ensemble_kernel(const T* __restrict__ frames, int H, int W, Layout Lp, int cached, int step_y,
-                        int step_x, int n_cols, int n_frames, float corr_min, float s2n_min,
-                        int has_thr, float thr, const float* __restrict__ cos_y,
+                        int step_x, int n_cols, int frame0, int n_frames, int pair0, int n_pairs,
+                        float corr_min, float s2n_min, int has_thr, float thr, const float* __restrict__ cos_y,
                         const float* __restrict__ sin_y, const float* __restrict__ cos_x,
                         const float* __restrict__ sin_x, float* __restrict__ sum_out,
                         float* __restrict__ count_out, float* __restrict__ cmax_out,
@@ -155,19 +170,19 @@ __global__ void __launch_bounds__(
         constexpr Layout L = make_layout(WY, WX, half_spectrum(WY, WX));
         static_assert(L.bytes() <= kMaxSmem, "the cached half spectrum must fit");
         ensemble_block<T, (WY * WX + L.nt - 1) / L.nt, WY, WX>(
-            frames, H, W, L, true, step_y, step_x, n_cols, n_frames, corr_min, s2n_min, has_thr, thr,
-            cos_y, sin_y, cos_x, sin_x, sum_out, count_out, cmax_out, s2n_out);
+            frames, H, W, L, true, step_y, step_x, n_cols, frame0, n_frames, pair0, n_pairs, corr_min,
+            s2n_min, has_thr, thr, cos_y, sin_y, cos_x, sin_x, sum_out, count_out, cmax_out, s2n_out);
     } else {
-        ensemble_block<T, 32, 0, 0>(frames, H, W, Lp, cached != 0, step_y, step_x, n_cols, n_frames,
-                                     corr_min, s2n_min, has_thr, thr, cos_y, sin_y, cos_x, sin_x,
-                                     sum_out, count_out, cmax_out, s2n_out);
+        ensemble_block<T, 32, 0, 0>(frames, H, W, Lp, cached != 0, step_y, step_x, n_cols, frame0,
+                                     n_frames, pair0, n_pairs, corr_min, s2n_min, has_thr, thr, cos_y,
+                                     sin_y, cos_x, sin_x, sum_out, count_out, cmax_out, s2n_out);
     }
 }
 
 template <typename T>
 cudaError_t launch(const void* frames, int H, int W, int wy, int wx, int step_y, int step_x,
-                   int n_rows, int n_cols, int n_frames, float corr_min, float s2n_min,
-                   int has_thr, float thr, const float* cos_y, const float* sin_y,
+                   int n_rows, int n_cols, int frame0, int n_frames, int pair0, int n_pairs,
+                   float corr_min, float s2n_min, int has_thr, float thr, const float* cos_y, const float* sin_y,
                    const float* cos_x, const float* sin_x, float* corr_sum, float* count,
                    float* cmax, float* s2n, cudaStream_t stream) {
     Layout L = make_layout(wy, wx, half_spectrum(wy, wx));
@@ -180,30 +195,30 @@ cudaError_t launch(const void* frames, int H, int W, int wy, int wx, int step_y,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     kernel<<<n_rows * n_cols, L.nt, smem, stream>>>(
-        static_cast<const T*>(frames), H, W, L, cached, step_y, step_x, n_cols, n_frames, corr_min,
-        s2n_min, has_thr, thr, cos_y, sin_y, cos_x, sin_x, corr_sum, count, cmax, s2n);
+        static_cast<const T*>(frames), H, W, L, cached, step_y, step_x, n_cols, frame0, n_frames, pair0,
+        n_pairs, corr_min, s2n_min, has_thr, thr, cos_y, sin_y, cos_x, sin_x, corr_sum, count, cmax, s2n);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int piv_ensemble_launch(const void* frames, int is_u8, int H, int W, int wy, int wx,
-                                   int step_y, int step_x, int n_rows, int n_cols, int n_frames,
-                                   float corr_min, float s2n_min, int has_thr, float thr,
-                                   const void* cos_y, const void* sin_y, const void* cos_x,
-                                   const void* sin_x, void* corr_sum, void* count, void* cmax,
-                                   void* s2n, void* stream) {
+                                   int step_y, int step_x, int n_rows, int n_cols, int frame0,
+                                   int n_frames, int pair0, int n_pairs, float corr_min,
+                                   float s2n_min, int has_thr, float thr, const void* cos_y,
+                                   const void* sin_y, const void* cos_x, const void* sin_x,
+                                   void* corr_sum, void* count, void* cmax, void* s2n, void* stream) {
     const float* tabs[4] = {static_cast<const float*>(cos_y), static_cast<const float*>(sin_y),
                             static_cast<const float*>(cos_x), static_cast<const float*>(sin_x)};
     float* out[4] = {static_cast<float*>(corr_sum), static_cast<float*>(count),
                      static_cast<float*>(cmax), static_cast<float*>(s2n)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err =
-        is_u8 ? launch<uint8_t>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, n_frames,
-                                corr_min, s2n_min, has_thr, thr, tabs[0], tabs[1], tabs[2],
-                                tabs[3], out[0], out[1], out[2], out[3], s)
-              : launch<float>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, n_frames,
-                              corr_min, s2n_min, has_thr, thr, tabs[0], tabs[1], tabs[2],
-                              tabs[3], out[0], out[1], out[2], out[3], s);
+        is_u8 ? launch<uint8_t>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, frame0, n_frames,
+                                pair0, n_pairs, corr_min, s2n_min, has_thr, thr, tabs[0], tabs[1],
+                                tabs[2], tabs[3], out[0], out[1], out[2], out[3], s)
+              : launch<float>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, frame0, n_frames,
+                              pair0, n_pairs, corr_min, s2n_min, has_thr, thr, tabs[0], tabs[1],
+                              tabs[2], tabs[3], out[0], out[1], out[2], out[3], s);
     return static_cast<int>(err);
 }

@@ -20,14 +20,20 @@
 // sub-pixel fit. Along an axis whose length has an odd part of at most 15 the
 // transform is the in-block FFT (register butterflies, one shared-memory
 // exchange per pass), else the table DFT along that axis.
-//   - pair_stride 1 (consecutive frames): a block walks a run of up to 15
+//   - pair_stride 1 (consecutive frames): a block walks a run of kRun = 15
 //     consecutive pairs of its window as the ensemble kernel walks a stack:
 //     frames f and f + 1 in one forward transform, the last frame's half
 //     spectrum cached, the planes of pairs (f - 1, f) and (f, f + 1) in the
 //     real and imaginary parts of one inverse. Each frame is transformed once
-//     (what B1 does on the TPU); 8 transforms for 15 pairs instead of 30. The
-//     grid is windows x runs, the run shortened while that leaves fewer than
-//     two waves of blocks.
+//     (what B1 does on the TPU); 8 transforms for 15 pairs instead of 30.
+//     Runs start on multiples of kRun counted from frame 0 of the whole
+//     stack, so every packing partner of a pair (the frame beside each of its
+//     frames in a forward transform, the pair beside it in the inverse) is
+//     fixed by its absolute index: a pair gives the same bits whichever split
+//     of the stack into launches computed it. A launch is told the absolute
+//     index of its first frame and the pairs it writes; it reads up to two
+//     frames before its first pair and one after its last (the halo,
+//     ops/piv_kernels.py::Span.cut) and writes no pair of the halo.
 //   - pair_stride 2 (multipass PIV's deformed pairs share no frame): one pair
 //     per block, its plane in the imaginary part of the inverse.
 // Shared memory is the plane (8 wy wx bytes), 2 n twiddles per axis and, for
@@ -97,18 +103,23 @@ __device__ __forceinline__ void store_pair(int wy, int wx, int first, float cmax
     s2n_out[o] = sn;
 }
 
-// Window (r, c) of frame f starts at frames[f][r * step_y][c * step_x]; pair p
-// correlates frames p * pair_stride and p * pair_stride + 1. Block (win, j)
-// takes pairs j run .. min((j + 1) run, n_pairs) - 1 of window win. run == 1:
-// one pair, z = a + i b, its plane in the imaginary part of the inverse. run >
-// 1 (pair_stride 1 only): the ensemble kernel's walk over frames j run .. , two
-// frames a step, the last spectrum cached in S.extra, two pairs' planes per
-// inverse. WY > 0: L is the constant layout of WY x WX windows.
+// Window (r, c) of frame f starts at frames[f - frame0][r * step_y][c * step_x]
+// (absolute frame indices; the launch holds frames frame0 .. frame0 + n_frames
+// - 1); pair p correlates frames p * pair_stride and p * pair_stride + 1 and
+// is written at row p - pair0 of the outputs, for pair0 <= p < pair0 +
+// n_pairs. Block (win, j) takes run k = pair0 / run + j of window win: pairs
+// k run .. k run + run - 1. run == 1: one pair, z = a + i b, its plane in the
+// imaginary part of the inverse. run > 1 (pair_stride 1 only): the ensemble
+// kernel's walk over frames k run .. k run + run, two frames a step, the last
+// spectrum cached in S.extra, two pairs' planes per inverse. Where the launch
+// starts inside a run, the walk starts at the run's first step that the
+// launch holds; that step only fills the cache, and writes no pair. WY > 0: L
+// is the constant layout of WY x WX windows.
 template <typename T, int WY, int WX>
 __device__ __forceinline__ void pairs_block(
     const T* __restrict__ frames, int H, int W, const Layout& L, int step_y, int step_x, int n_cols,
-    int n_pairs, int pair_stride, int run, int has_thr, float thr, const float* __restrict__ cos_y,
-    const float* __restrict__ sin_y, const float* __restrict__ cos_x,
+    int frame0, int n_frames, int pair0, int n_pairs, int pair_stride, int run, int has_thr, float thr,
+    const float* __restrict__ cos_y, const float* __restrict__ sin_y, const float* __restrict__ cos_x,
     const float* __restrict__ sin_x, float* __restrict__ u_out, float* __restrict__ v_out,
     float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
     extern __shared__ float smem[];
@@ -130,24 +141,27 @@ __device__ __forceinline__ void pairs_block(
         const auto at = [&](int ys, int xs) { return plane[unshift(ys, wy) * ld + unshift(xs, wx)]; };
         const int first = first_peak(wy, wx, cmax, at, S.red);
         store_pair(wy, wx, first, cmax, s2n, valid, has_thr && fminf(a.signal, b.signal) < thr, at,
-                   static_cast<size_t>(pair) * n_win + win, u_out, v_out, cmax_out, s2n_out);
+                   static_cast<size_t>(pair - pair0) * n_win + win, u_out, v_out, cmax_out, s2n_out);
     };
 
-    // frames f and f + 1 a step; the run's last frame is p1 (run == 1: one step, frames p0 stride and the next)
-    const int p0 = blockIdx.y * run, p1 = min(p0 + run, n_pairs);
+    // the run's frames p0 .. p1, cut to those the launch holds; steps at p0 + 2 i
+    const int end = pair0 + n_pairs;
+    const int p0 = (pair0 / run + static_cast<int>(blockIdx.y)) * run;
+    const int p1 = run > 1 ? min(p0 + run, frame0 + n_frames - 1) : p0 + 1;
+    const int first_step = p0 >= frame0 ? p0 : p0 + ((frame0 - p0 + 1) & ~1);
     float* Pr = run > 1 ? S.extra : nullptr;
     float* Pi = run > 1 ? Pr + wy * (wx / 2 + 1) : nullptr;
     WinStat prev{0.f, 0.f};
-    for (int f = p0; f <= p1; f += 2) {
-        const T* fa = src + static_cast<size_t>(f) * pair_stride * frame_px;
-        const bool has_b = f + 1 <= p1, use_prev = f > p0;
+    for (int f = first_step; f <= min(p1, end); f += 2) {
+        const T* fa = src + (static_cast<size_t>(f) * pair_stride - frame0) * frame_px;
+        const bool has_b = f + 1 <= p1, use_prev = f > first_step;
         WinStat a, b;
         load_windows(fa, has_b ? fa + frame_px : nullptr, W, S, L, a, b);
         transform_2d<WY, WX>(false);
         cross_spectra(S, L, Pr, Pi, use_prev, has_b);
         transform_2d<WY, WX>(true);  // the inverse: the planes unshifted in Zr and Zi
-        if (use_prev) finish_store(S.Zr, f - 1, prev, a);
-        if (has_b) finish_store(S.Zi, f, a, b);
+        if (use_prev && f - 1 >= pair0) finish_store(S.Zr, f - 1, prev, a);
+        if (has_b && f >= pair0 && f < end) finish_store(S.Zi, f, a, b);
         prev = b;
         __syncthreads();  // the peaks are read before the next step overwrites the planes
     }
@@ -160,40 +174,37 @@ __global__ void __launch_bounds__(
     WY ? make_layout(WY ? WY : 8, WX ? WX : 8, 0).nt : kMaxThreads,
     WY ? blocks_per_sm(make_layout(WY ? WY : 8, WX ? WX : 8, half_spectrum(WY, WX))) : 1)
     piv_pairs_kernel(const T* __restrict__ frames, int H, int W, Layout Lp, int step_y, int step_x,
-                     int n_cols, int n_pairs, int pair_stride, int run, int has_thr, float thr,
+                     int n_cols, int frame0, int n_frames, int pair0, int n_pairs, int pair_stride,
+                     int run, int has_thr, float thr,
                      const float* __restrict__ cos_y, const float* __restrict__ sin_y,
                      const float* __restrict__ cos_x, const float* __restrict__ sin_x,
                      float* __restrict__ u_out, float* __restrict__ v_out,
                      float* __restrict__ cmax_out, float* __restrict__ s2n_out) {
     if constexpr (WY != 0) {
         constexpr Layout L = make_layout(WY, WX, 0);
-        pairs_block<T, WY, WX>(frames, H, W, L, step_y, step_x, n_cols, n_pairs, pair_stride, run, has_thr,
-                             thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
+        pairs_block<T, WY, WX>(frames, H, W, L, step_y, step_x, n_cols, frame0, n_frames, pair0, n_pairs,
+                               pair_stride, run, has_thr, thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
     } else {
-        pairs_block<T, 0, 0>(frames, H, W, Lp, step_y, step_x, n_cols, n_pairs, pair_stride, run, has_thr,
-                              thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
+        pairs_block<T, 0, 0>(frames, H, W, Lp, step_y, step_x, n_cols, frame0, n_frames, pair0, n_pairs,
+                             pair_stride, run, has_thr, thr, cos_y, sin_y, cos_x, sin_x, u_out, v_out, cmax_out, s2n_out);
     }
 }
 
-constexpr int kMaxRun = 15;  // pairs a block walks at most (pair_stride 1)
+// Pairs a block walks at pair_stride 1: odd, so that a run's frames fill
+// whole steps. One fixed length for every launch, so that runs fall at the
+// same absolute pairs however a stack is split.
+constexpr int kRun = 15;
 
 template <typename T>
 cudaError_t launch(const void* frames, int H, int W, int wy, int wx, int step_y, int step_x,
-                   int n_rows, int n_cols, int n_pairs, int pair_stride, int has_thr, float thr,
-                   const float* cos_y, const float* sin_y, const float* cos_x, const float* sin_x,
-                   float* u, float* v, float* cmax, float* s2n, cudaStream_t stream) {
-    // Consecutive pairs share frames: a block that walks a run of them transforms
-    // each frame once. The longest odd run (an even number of frames: whole
-    // steps) up to kMaxRun that leaves the grid two waves of blocks, if the
-    // cached spectrum fits.
+                   int n_rows, int n_cols, int frame0, int n_frames, int pair0, int n_pairs,
+                   int pair_stride, int has_thr, float thr, const float* cos_y, const float* sin_y,
+                   const float* cos_x, const float* sin_x, float* u, float* v, float* cmax, float* s2n,
+                   cudaStream_t stream) {
+    // Consecutive pairs share frames: a block that walks a run of them
+    // transforms each frame once, where the cached spectrum fits.
     Layout L = make_layout(wy, wx, half_spectrum(wy, wx));
-    int run = 1;
-    if (pair_stride == 1 && L.bytes() <= kMaxSmem) {
-        const int wave = kSMs * blocks_per_sm(L);
-        for (int r = 3; r <= kMaxRun && r <= n_pairs; r += 2) {
-            if (n_rows * n_cols * ((n_pairs + r - 1) / r) >= 2 * wave) run = r;
-        }
-    }
+    const int run = pair_stride == 1 && L.bytes() <= kMaxSmem ? kRun : 1;
     if (run == 1) L.extra = 0;
     const size_t smem = L.bytes();
     auto kernel = piv_pairs_kernel<T, 0, 0>;
@@ -201,31 +212,32 @@ cudaError_t launch(const void* frames, int H, int W, int wy, int wx, int step_y,
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    dim3 grid(n_rows * n_cols, (n_pairs + run - 1) / run);
+    dim3 grid(n_rows * n_cols, (pair0 + n_pairs - 1) / run - pair0 / run + 1);
     kernel<<<grid, L.nt, smem, stream>>>(
-        static_cast<const T*>(frames), H, W, L, step_y, step_x, n_cols, n_pairs, pair_stride, run,
-        has_thr, thr, cos_y, sin_y, cos_x, sin_x, u, v, cmax, s2n);
+        static_cast<const T*>(frames), H, W, L, step_y, step_x, n_cols, frame0, n_frames, pair0, n_pairs,
+        pair_stride, run, has_thr, thr, cos_y, sin_y, cos_x, sin_x, u, v, cmax, s2n);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int piv_pairs_launch(const void* frames, int is_u8, int H, int W, int wy, int wx,
-                                int step_y, int step_x, int n_rows, int n_cols, int n_pairs,
-                                int pair_stride, int has_thr, float thr, const void* cos_y,
-                                const void* sin_y, const void* cos_x, const void* sin_x, void* u,
-                                void* v, void* cmax, void* s2n, void* stream) {
+                                int step_y, int step_x, int n_rows, int n_cols, int frame0,
+                                int n_frames, int pair0, int n_pairs, int pair_stride, int has_thr,
+                                float thr, const void* cos_y, const void* sin_y, const void* cos_x,
+                                const void* sin_x, void* u, void* v, void* cmax, void* s2n,
+                                void* stream) {
     const float* tabs[4] = {static_cast<const float*>(cos_y), static_cast<const float*>(sin_y),
                             static_cast<const float*>(cos_x), static_cast<const float*>(sin_x)};
     float* out[4] = {static_cast<float*>(u), static_cast<float*>(v), static_cast<float*>(cmax),
                      static_cast<float*>(s2n)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err =
-        is_u8 ? launch<uint8_t>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, n_pairs,
-                                pair_stride, has_thr, thr, tabs[0], tabs[1], tabs[2], tabs[3],
-                                out[0], out[1], out[2], out[3], s)
-              : launch<float>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, n_pairs,
-                              pair_stride, has_thr, thr, tabs[0], tabs[1], tabs[2], tabs[3],
-                              out[0], out[1], out[2], out[3], s);
+        is_u8 ? launch<uint8_t>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, frame0, n_frames,
+                                pair0, n_pairs, pair_stride, has_thr, thr, tabs[0], tabs[1], tabs[2],
+                                tabs[3], out[0], out[1], out[2], out[3], s)
+              : launch<float>(frames, H, W, wy, wx, step_y, step_x, n_rows, n_cols, frame0, n_frames,
+                              pair0, n_pairs, pair_stride, has_thr, thr, tabs[0], tabs[1], tabs[2],
+                              tabs[3], out[0], out[1], out[2], out[3], s);
     return static_cast<int>(err);
 }

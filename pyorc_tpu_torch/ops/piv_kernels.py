@@ -54,6 +54,19 @@ The window sizes of the main paths (16, 26, 32, 52, 64, 104, 128 and 64x128
 px) each get a kernel built for that size; any other size runs one kernel
 that takes its plan as a run-time value.
 
+A pair's result does not depend on how a stack is split into launches: the
+kernels fix every packing partner (the frame beside a frame in a forward
+transform, the pair beside a pair in an inverse) by absolute position in the
+whole stack. A caller that cuts a stack (the engine's chunks, a chunk's
+out-of-memory halves, a lazy stack's batches, the sharded functions' pair
+shards) passes each piece as a :class:`Span`: its frames, the absolute index
+of its first frame, its halo (the frames around its pairs that the kernel
+reads and pairs no further: :data:`HALO`, :func:`Span.cut`) and the whole
+stack's frame count, so that a launch can tell a missing halo frame from the
+stack's end; :meth:`Span.place` gives the keywords. The pieces then
+give, bit for bit, the per-pair outputs of one launch over the whole stack
+(the ensemble's ``corr_sum`` is a sum of the pieces' partial sums).
+
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into one
 library under ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
 """
@@ -67,7 +80,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -84,6 +97,8 @@ __all__ = [
     "piv_pairs_engine",
     "piv_ensemble_engine",
     "kernel_takes",
+    "Span",
+    "HALO",
     "KERNEL_ROUTE",
     "LAUNCHES",
     "build_library",
@@ -102,6 +117,60 @@ LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0}
 
 MIN_WINDOW = 8
 MAX_WINDOW = 128
+
+# Frames a launch reads before its first pair and after its last pair's second
+# frame, where the stack has them: a pair's packing partners reach two frames
+# back (the cached spectrum of the pair beside it in the inverse) and one
+# forward (the frame beside its second frame in a forward transform).
+HALO = (2, 1)
+
+
+class Span(NamedTuple):
+    """A piece of a frame stack for one launch.
+
+    ``frames`` [T, ...] (numpy or tensor) are frames ``frame0 .. frame0 + T - 1``
+    of the whole stack of ``n_total`` frames (default: the piece ends the
+    stack, ``frame0 + T``); the first ``halo[0]`` and the last ``halo[1]`` of
+    them are read and not paired, so the piece's pairs are the
+    ``T - 1 - sum(halo)`` pairs between the others.
+    """
+
+    frames: object
+    frame0: int = 0
+    halo: Tuple[int, int] = (0, 0)
+    n_total: Optional[int] = None
+
+    @property
+    def total(self) -> int:
+        """The whole stack's frame count."""
+        return self.frame0 + self.frames.shape[0] if self.n_total is None else self.n_total
+
+    def place(self) -> dict:
+        """The piece's place in the stack, as the launch functions' keywords."""
+        return {"frame0": self.frame0, "halo": self.halo, "n_total": self.total}
+
+    @property
+    def n_pairs(self) -> int:
+        return self.frames.shape[0] - 1 - self.halo[0] - self.halo[1]
+
+    def own(self):
+        """The frames of the piece's own pairs, without the halo."""
+        return self.frames[self.halo[0] : self.frames.shape[0] - self.halo[1]]
+
+    def cut(self, p0: int, p1: int) -> "Span":
+        """Pairs ``p0 .. p1 - 1`` of this piece (counted from its first pair) with
+        their :data:`HALO` as far as the piece's frames hold it."""
+        if not 0 <= p0 < p1 <= self.n_pairs:
+            raise ValueError(f"pairs [{p0}, {p1}) outside a piece of {self.n_pairs} pairs")
+        a, b = self.halo[0] + p0, self.halo[0] + p1  # local frames of the first pair, of the last pair's second
+        f0, f1 = max(0, a - HALO[0]), min(self.frames.shape[0], b + 1 + HALO[1])
+        return Span(self.frames[f0:f1], self.frame0 + f0, (a - f0, f1 - 1 - b), self.total)
+
+    def to(self, device) -> "Span":
+        from .._device import to_device
+
+        return self._replace(frames=to_device(self.frames, device))
+
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pyorc_tpu_torch"
@@ -169,7 +238,9 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # wy, wx
         ctypes.c_int, ctypes.c_int,  # step_y, step_x
         ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
-        ctypes.c_int, ctypes.c_int,  # n_pairs, pair_stride
+        ctypes.c_int, ctypes.c_int,  # frame0 (absolute index of the first frame), n_frames
+        ctypes.c_int, ctypes.c_int,  # pair0 (absolute index of the first pair), n_pairs
+        ctypes.c_int,  # pair_stride
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # cos/sin tables of y, of x
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # u, v, cmax, s2n
@@ -184,7 +255,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # wy, wx
         ctypes.c_int, ctypes.c_int,  # step_y, step_x
         ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
-        ctypes.c_int,  # n_frames
+        ctypes.c_int, ctypes.c_int,  # frame0 (absolute index of the first frame), n_frames
+        ctypes.c_int, ctypes.c_int,  # pair0 (absolute index of the first pair), n_pairs
         ctypes.c_float, ctypes.c_float,  # corr_min, s2n_min
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # cos/sin tables of y, of x
@@ -241,10 +313,43 @@ def _tables(sas, device):
     return [t.data_ptr() for n in sas for t in _dft_tables(n, device)]
 
 
-def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
+def _check_halo(frame0, halo, n_total, n_frames, pair_stride, name):
+    """The launch's first absolute pair; raises where the halo is short of what the kernel must read.
+
+    ``n_total`` is the whole stack's frame count; a launch given no place
+    (``frame0`` 0, no halo) may leave it out and is then the whole stack.
+    """
+    frame0, (h0, h1) = int(frame0), (int(halo[0]), int(halo[1]))
+    if frame0 < 0 or h0 < 0 or h1 < 0:
+        raise ValueError(f"{name}: frame0={frame0}, halo={halo} must not be negative")
+    if pair_stride != 1 and (frame0, h0, h1) != (0, 0, 0):
+        raise ValueError(f"{name}: explicit pairs (pair_stride={pair_stride}) take no frame0 or halo")
+    if n_total is None:
+        if (frame0, h0, h1) != (0, 0, 0):
+            raise ValueError(f"{name}: a piece of a stack (frame0, halo) needs n_total, the stack's frame count "
+                             "(Span.place gives it)")
+        n_total = n_frames
+    end = frame0 + n_frames  # the absolute index after the launch's last frame
+    if n_total < end:
+        raise ValueError(f"{name}: frames {frame0} .. {end - 1} lie outside a stack of {n_total} frames")
+    if h0 < min(HALO[0], frame0 + h0):
+        raise ValueError(
+            f"{name}: pairs from absolute pair {frame0 + h0} need {min(HALO[0], frame0 + h0)} frames of "
+            f"halo before them, got {h0} (Span.cut gives them)"
+        )
+    if h1 < min(HALO[1], n_total - end + h1):
+        raise ValueError(
+            f"{name}: pairs up to absolute frame {end - 1 - h1} of a stack of {n_total} frames need "
+            f"{min(HALO[1], n_total - end + h1)} frames of halo after them, got {h1} (Span.cut gives them)"
+        )
+    return frame0 + h0
+
+
+def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride, frame0=0, halo=(0, 0), n_total=None):
     imgs = _kernel_frames(imgs, sas, "piv_pairs_fused")
     t, h, w = imgs.shape
-    n_pairs = t - 1 if pair_stride == 1 else t // pair_stride
+    pair0 = _check_halo(frame0, halo, n_total, t, pair_stride, "piv_pairs_fused")
+    n_pairs = t - 1 - halo[0] - halo[1] if pair_stride == 1 else t // pair_stride
     if n_pairs < 1 or n_pairs > 65535:
         raise ValueError(f"piv_pairs_fused: {n_pairs} pairs per launch; the kernel takes 1-65535")
     device = imgs.device
@@ -253,7 +358,7 @@ def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
     with torch.cuda.device(device):
         err = _library().piv_pairs_launch(
             imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[0], sas[1], steps[0], steps[1],
-            n_rows, n_cols, n_pairs, pair_stride,
+            n_rows, n_cols, int(frame0), t, pair0, n_pairs, pair_stride,
             int(signal_threshold is not None), float(signal_threshold or 0.0),
             *_tables(sas, device), *(o.data_ptr() for o in outs), stream,
         )
@@ -263,20 +368,23 @@ def _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride):
     return tuple(outs)
 
 
-def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold):
+def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0=0, halo=(0, 0),
+                     n_total=None):
     imgs = _kernel_frames(imgs, sas, "piv_ensemble_fused")
     t, h, w = imgs.shape
-    if t < 2:
-        raise ValueError(f"piv_ensemble_fused: {t} frames per launch; the kernel needs at least 2")
+    pair0 = _check_halo(frame0, halo, n_total, t, 1, "piv_ensemble_fused")
+    n_pairs = t - 1 - halo[0] - halo[1]
+    if n_pairs < 1:
+        raise ValueError(f"piv_ensemble_fused: {n_pairs} pairs per launch; the kernel needs at least 2 frames, one pair")
     device = imgs.device
     corr_sum = torch.empty((n_rows * n_cols, sas[0], sas[1]), dtype=torch.float32, device=device)
     count = torch.empty((n_rows * n_cols,), dtype=torch.float32, device=device)
-    cmax, s2n = (torch.empty((t - 1, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(2))
+    cmax, s2n = (torch.empty((n_pairs, n_rows, n_cols), dtype=torch.float32, device=device) for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _library().piv_ensemble_launch(
             imgs.data_ptr(), int(imgs.dtype == torch.uint8), h, w, sas[0], sas[1], steps[0], steps[1],
-            n_rows, n_cols, t, float(corr_min), float(s2n_min),
+            n_rows, n_cols, int(frame0), t, pair0, n_pairs, float(corr_min), float(s2n_min),
             int(signal_threshold is not None), float(signal_threshold or 0.0),
             *_tables(sas, device),
             corr_sum.data_ptr(), count.data_ptr(), cmax.data_ptr(), s2n.data_ptr(), stream,
@@ -285,6 +393,12 @@ def _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal
         raise RuntimeError(f"piv_ensemble_fused: CUDA kernel launch failed (cudaError {err})")
     LAUNCHES["piv_ensemble"] += 1
     return corr_sum, count, cmax, s2n
+
+
+def _own(imgs, frame0, halo, n_total, pair_stride, name):
+    """The frames of a launch's own pairs (its halo dropped), for the routes that pair frames one by one."""
+    _check_halo(frame0, halo, n_total, imgs.shape[0], pair_stride, name)
+    return imgs[halo[0] : imgs.shape[0] - halo[1]]
 
 
 def piv_pairs_fused(
@@ -296,11 +410,18 @@ def piv_pairs_fused(
     n_cols: int,
     signal_threshold: Optional[float] = None,
     pair_stride: int = 1,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Per-pair PIV: frames [T, H, W] -> (u, v, corr_max, s2n), each [n_pairs, n_rows, n_cols].
 
     A CUDA tensor launches the CUDA kernel; a geometry the kernel does not
-    take raises. A CPU tensor runs :func:`piv_pairs_fused_plain`.
+    take raises. A CPU tensor runs :func:`piv_pairs_fused_plain`. ``frame0``,
+    ``halo`` and ``n_total`` place the frames in a stack of ``n_total``
+    frames (:meth:`Span.place`): the pairs are those between the halo's
+    frames, and each gives the bits of one launch over the whole stack; a
+    halo short of what the stack holds raises.
     """
     sas = win._as2(sas)
     overlap = win._as2(overlap)
@@ -310,13 +431,15 @@ def piv_pairs_fused(
         raise ValueError(f"frames of shape {tuple(imgs.shape)} do not match dim_size {tuple(dim_size)}")
     steps = _grid_steps(dim_size, sas, overlap, n_rows, n_cols)
     if imgs.device.type == "cuda":
-        out = _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride)
+        out = _launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride, frame0, halo, n_total)
         KERNEL_ROUTE["piv_pairs_fused"] = "cuda"
         return out
     if imgs.device.type != "cpu":
         raise ValueError(f"piv_pairs_fused: no kernel for device {imgs.device}")
     KERNEL_ROUTE["piv_pairs_fused"] = "plain_cpu"
-    return piv_pairs_fused_plain(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride)
+    return piv_pairs_fused_plain(
+        imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride, frame0, halo, n_total
+    )
 
 
 def piv_pairs_fused_plain(
@@ -328,13 +451,19 @@ def piv_pairs_fused_plain(
     n_cols: int,
     signal_threshold: Optional[float] = None,
     pair_stride: int = 1,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """The kernel's contract in plain PyTorch (``torch.fft``), on any device.
 
     Built from :mod:`pyorc_tpu_torch.ops.piv` plus the two points where the
     Pallas kernels differ from the XLA pipeline: ``u``/``v`` are NaN where a
-    window has zero variance, and ``s2n = max / max(mean, 1e-10)``.
+    window has zero variance, and ``s2n = max / max(mean, 1e-10)``. Each pair
+    is computed on its own, so ``frame0``, ``halo`` and ``n_total`` only
+    drop the halo.
     """
+    imgs = _own(imgs, frame0, halo, n_total, pair_stride, "piv_pairs_fused_plain")
     if imgs.device.type == "cuda":
         # TF32 keeps ~3 decimal digits, short of the 0.01 m/s velocity bar
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,13 +498,18 @@ def piv_ensemble_fused(
     corr_min: float = 0.2,
     s2n_min: float = 3.0,
     signal_threshold: Optional[float] = None,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Ensemble PIV: frames [T, H, W] -> (corr_sum [n_windows, wy, wx],
-    corr_count [n_windows], corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols]).
+    corr_count [n_windows], corr_max [n_pairs, n_rows, n_cols], s2n [n_pairs, n_rows, n_cols]).
 
-    A CUDA tensor launches the CUDA kernel (one launch for the whole stack);
-    a geometry the kernel does not take raises. A CPU tensor runs
-    :func:`piv_ensemble_fused_plain`.
+    A CUDA tensor launches the CUDA kernel (one launch for the stack); a
+    geometry the kernel does not take raises. A CPU tensor runs
+    :func:`piv_ensemble_fused_plain`. ``frame0``, ``halo`` and ``n_total`` as in
+    :func:`piv_pairs_fused`: per-pair ``corr_max``, ``s2n`` and gates of
+    one launch over the whole stack, and that launch's partial sums.
     """
     sas = win._as2(sas)
     overlap = win._as2(overlap)
@@ -383,13 +517,17 @@ def piv_ensemble_fused(
         raise ValueError(f"frames of shape {tuple(imgs.shape)} do not match dim_size {tuple(dim_size)}")
     steps = _grid_steps(dim_size, sas, overlap, n_rows, n_cols)
     if imgs.device.type == "cuda":
-        out = _launch_ensemble(imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
+        out = _launch_ensemble(
+            imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0, halo, n_total
+        )
         KERNEL_ROUTE["piv_ensemble_fused"] = "cuda"
         return out
     if imgs.device.type != "cpu":
         raise ValueError(f"piv_ensemble_fused: no kernel for device {imgs.device}")
     KERNEL_ROUTE["piv_ensemble_fused"] = "plain_cpu"
-    return piv_ensemble_fused_plain(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
+    return piv_ensemble_fused_plain(
+        imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0, halo, n_total
+    )
 
 
 def piv_ensemble_fused_plain(
@@ -402,9 +540,14 @@ def piv_ensemble_fused_plain(
     corr_min: float = 0.2,
     s2n_min: float = 3.0,
     signal_threshold: Optional[float] = None,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """The kernel's contract in plain PyTorch (``torch.fft``), on any device:
-    :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`, with TF32 off on the card."""
+    :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`, with TF32 off on the
+    card, over the pairs between the halo's frames."""
+    imgs = _own(imgs, frame0, halo, n_total, 1, "piv_ensemble_fused_plain")
     if imgs.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -422,16 +565,21 @@ def piv_pairs_routed(
     n_cols: int,
     signal_threshold: Optional[float] = None,
     pair_stride: int = 1,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Per-pair PIV by plan: :func:`piv_pairs_fused` where :func:`kernel_takes`
     the windows, else :func:`pyorc_tpu_torch.ops.piv.piv_pairs` (the XLA
     pipeline's semantics, as the JAX package routes such windows), recorded
     as route ``"torch_ops"``. Never a fallback: a kernel that fails raises."""
     if kernel_takes(sas):
-        return piv_pairs_fused(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride=pair_stride)
-    KERNEL_ROUTE["piv_pairs_fused"] = "torch_ops"
-    return piv_ops.piv_pairs(
-        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, signal_threshold, pair_stride
+        return piv_pairs_fused(
+            imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride=pair_stride, frame0=frame0,
+            halo=halo, n_total=n_total,
+        )
+    return _pairs_torch_ops(
+        imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold, pair_stride, frame0, halo, n_total
     )
 
 
@@ -445,15 +593,20 @@ def piv_ensemble_routed(
     corr_min: float = 0.2,
     s2n_min: float = 3.0,
     signal_threshold: Optional[float] = None,
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Ensemble PIV by plan: :func:`piv_ensemble_fused` where :func:`kernel_takes`
     the windows, else :func:`pyorc_tpu_torch.ops.piv.piv_ensemble_scan`,
     recorded as route ``"torch_ops"``."""
     if kernel_takes(sas):
-        return piv_ensemble_fused(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold)
-    KERNEL_ROUTE["piv_ensemble_fused"] = "torch_ops"
-    return piv_ops.piv_ensemble_scan(
-        imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
+        return piv_ensemble_fused(
+            imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0=frame0,
+            halo=halo, n_total=n_total,
+        )
+    return _ensemble_torch_ops(
+        imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0, halo, n_total
     )
 
 
@@ -485,16 +638,19 @@ def _engine(engine: str, routed, fused, plain, ops):
     raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
 
 
-def _pairs_torch_ops(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, pair_stride=1):
+def _pairs_torch_ops(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, pair_stride=1,
+                     frame0=0, halo=(0, 0), n_total=None):
     KERNEL_ROUTE["piv_pairs_fused"] = "torch_ops"
+    imgs = _own(imgs, frame0, halo, n_total, pair_stride, "piv_pairs_routed")
     return piv_ops.piv_pairs(
         imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, signal_threshold, pair_stride
     )
 
 
 def _ensemble_torch_ops(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min=0.2, s2n_min=3.0,
-                        signal_threshold=None):
+                        signal_threshold=None, frame0=0, halo=(0, 0), n_total=None):
     KERNEL_ROUTE["piv_ensemble_fused"] = "torch_ops"
+    imgs = _own(imgs, frame0, halo, n_total, 1, "piv_ensemble_routed")
     return piv_ops.piv_ensemble_scan(
         imgs, dim_size, win._as2(sas), win._as2(overlap), n_rows, n_cols, corr_min, s2n_min, signal_threshold
     )

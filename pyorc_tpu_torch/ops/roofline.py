@@ -1,0 +1,55 @@
+"""The least time an H100 could take for the PIV kernels' work: one definition for
+``chip_smoke.py`` and ``bench_torch.py``.
+
+A kernel's bound is the larger of two times: the operations of the FFT
+algorithm, whatever implements it, over the card's fp32 peak outside the
+tensor cores, and the bytes it must move (each input read once, each output
+written once) over the card's memory rate. The peaks are the H100 SXM's
+published ones at its full 700 W power limit; a card set below it runs
+slower, so every bound stands beside the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import math
+
+__all__ = ["PEAK_FP32_FLOPS", "PEAK_HBM_BYTES", "work_bound", "pairs_bound", "ensemble_bound"]
+
+# H100 SXM peaks: fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
+    """The least time the card could take for a PIV kernel's work on these inputs.
+
+    ``frames`` is the stack (a tensor: its elements and their size count as
+    the bytes read), ``args`` are ``(dim_size, sas, overlap, n_rows, n_cols)``.
+    Operations: per frame window one real 2-D FFT (2.5 N log2 N for N = wy wx
+    points) plus the demean and variance (3 N); per window pair one inverse
+    real FFT, the spectral product (3 N) and the plane's normalization, clip,
+    max and sum (4 N), plus ``per_pair_extra`` N. Bytes: the frames read once
+    and ``out_bytes`` written once. Returns (bound_ms, "operations" or "bytes").
+    """
+    _, sas, _, n_rows, n_cols = args
+    n_pix = sas[0] * sas[1]
+    fft = 2.5 * n_pix * math.log2(n_pix)
+    n_win = n_rows * n_cols
+    flops = n_win * (frames.shape[0] * (fft + 3 * n_pix) + n_pairs * (fft + (7 + per_pair_extra) * n_pix))
+    n_bytes = frames.numel() * frames.element_size() + out_bytes
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pairs_bound(frames, args, pair_stride=1):
+    """The per-pair kernel's bound: four float32 outputs a window pair."""
+    n_pairs = frames.shape[0] - 1 if pair_stride == 1 else frames.shape[0] // pair_stride
+    return work_bound(frames, args, n_pairs, 4 * 4 * n_pairs * args[3] * args[4])
+
+
+def ensemble_bound(frames, args):
+    """The ensemble kernel's bound: the plane sums and counts, and cmax and s2n a window pair;
+    the gate and the sum count one operation a plane element."""
+    n_pairs, n_win = frames.shape[0] - 1, args[3] * args[4]
+    out_bytes = 4 * (n_win * args[1][0] * args[1][1] + n_win + 2 * n_pairs * n_win)
+    return work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=1)

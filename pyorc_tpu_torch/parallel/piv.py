@@ -1,9 +1,14 @@
 """Sharded PIV: frame pairs spread over a mesh of devices (port of :mod:`pyorc_tpu.parallel.piv`).
 
-Frame pairs are independent; consecutive pairs share one frame, so each
-shard takes its contiguous run of pairs plus a one-frame halo, cut from the
+Frame pairs are independent; consecutive pairs share frames, so each shard
+takes its contiguous run of pairs with the kernels' halo of frames around
+it (:meth:`pyorc_tpu_torch.ops.piv_kernels.Span.cut`), cut from the
 caller's stack (a slice of a tensor already on the shard's device is a view,
-anything else is copied there once). Shards are dispatched from the
+anything else is copied there once). Each shard's launch is told where its
+frames sit in the whole stack, so per-pair outputs are the bits of one
+unsharded launch, whatever the number of shards. The per-pair and ensemble
+functions take ``frame0``, ``halo`` and ``n_total`` (:meth:`Span.place`) for a
+stack that is itself a piece of a larger one (an engine chunk). Shards are dispatched from the
 caller's thread one after another: the kernel launches are asynchronous, so
 shards on different cards overlap without threads, and the results are
 gathered only after every shard has been launched. Shards on one repeated
@@ -159,11 +164,14 @@ def _gather(outs) -> Tuple[np.ndarray, ...]:
     return tuple(np.concatenate([_device.to_host(o) for o in column], axis=0) for column in zip(*outs))
 
 
-def _run_pair_shards(imgs, devices, fn):
-    """``fn(frames)`` on each shard's frames (its pairs plus a one-frame halo) on its device; joined."""
-    shards = _pair_shards(imgs.shape[0] - 1, len(devices))
-    outs = [fn(_device.to_device(imgs[p0 : p1 + 1], dev)) for (p0, p1), dev in zip(shards, devices)]
-    return _gather(outs)
+def _shard_spans(span: piv_kernels.Span, n_dev: int) -> List[piv_kernels.Span]:
+    """Each shard's pairs of ``span`` with their halo (:func:`_pair_shards`)."""
+    return [span.cut(p0, p1) for p0, p1 in _pair_shards(span.n_pairs, n_dev)]
+
+
+def _run_pair_shards(span: piv_kernels.Span, devices, fn):
+    """``fn(shard)`` on each shard's :class:`Span` on its device; the outputs joined."""
+    return _gather([fn(shard.to(dev)) for shard, dev in zip(_shard_spans(span, len(devices)), devices)])
 
 
 def piv_pairs_sharded(
@@ -174,18 +182,23 @@ def piv_pairs_sharded(
     mesh: Optional[Mesh] = None,
     signal_threshold: Optional[float] = None,
     engine: str = "auto",
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Per-pair PIV over the mesh's pair axis.
 
-    ``imgs`` [T, H, W] is a numpy array or a tensor. Returns
-    (u, v, corr_max, s2n), each [T-1, n_rows, n_cols] (numpy).
+    ``imgs`` [T, H, W] is a numpy array or a tensor, frames ``frame0 ..`` of a
+    stack of ``n_total`` frames, whose first ``halo[0]`` and last ``halo[1]``
+    are read and not paired (:class:`pyorc_tpu_torch.ops.piv_kernels.Span`). Returns (u, v, corr_max,
+    s2n), each [T-1-sum(halo), n_rows, n_cols] (numpy).
     """
     mesh = mesh or make_mesh()
     sas, ov, dim_size, n_rows, n_cols = _geometry(imgs, window_size, overlap, search_area_size)
     correlate = piv_kernels.piv_pairs_engine(engine)
     return _run_pair_shards(
-        imgs, list(mesh.devices.ravel()),
-        lambda frames: correlate(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold),
+        piv_kernels.Span(imgs, frame0, halo, n_total), list(mesh.devices.ravel()),
+        lambda shard: correlate(shard.frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold, **shard.place()),
     )
 
 
@@ -199,21 +212,26 @@ def piv_ensemble_sharded(
     s2n_min: float = 3.0,
     signal_threshold: Optional[float] = None,
     engine: str = "auto",
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Ensemble PIV over the mesh's pair axis; the shards' accumulators are added in shard order.
 
-    Returns (corr_sum [n_windows, wy, wx], corr_count [n_windows],
-    corr_max [T-1, n_rows, n_cols], s2n [T-1, n_rows, n_cols]) (numpy).
+    ``frame0``, ``halo`` and ``n_total`` as in :func:`piv_pairs_sharded`.
+    Returns (corr_sum [n_windows, wy, wx], corr_count [n_windows], corr_max [n_pairs,
+    n_rows, n_cols], s2n [n_pairs, n_rows, n_cols]) (numpy).
     """
     mesh = mesh or make_mesh()
     sas, ov, dim_size, n_rows, n_cols = _geometry(imgs, window_size, overlap, search_area_size)
     ensemble = piv_kernels.piv_ensemble_engine(engine)
     devices = list(mesh.devices.ravel())
-    shards = _pair_shards(imgs.shape[0] - 1, len(devices))
+    span = piv_kernels.Span(imgs, frame0, halo, n_total)
+    shards = [s.to(dev) for s, dev in zip(_shard_spans(span, len(devices)), devices)]
     outs = [
-        ensemble(_device.to_device(imgs[p0 : p1 + 1], dev), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min,
-                 signal_threshold)
-        for (p0, p1), dev in zip(shards, devices)
+        ensemble(shard.frames, dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold,
+                 **shard.place())
+        for shard in shards
     ]
     # the psum over the pair axis: the shards' accumulators added in shard
     # order on the first device
@@ -245,9 +263,9 @@ def piv_multipass_sharded(
     mesh = mesh or make_mesh()
     sas, ov, dim_size, n_rows, n_cols = _geometry(imgs, window_size, overlap, search_area_size)
     return _run_pair_shards(
-        imgs, list(mesh.devices.ravel()),
-        lambda frames: multipass.piv_multipass(
-            frames, dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold,
+        piv_kernels.Span(imgs), list(mesh.devices.ravel()),
+        lambda shard: multipass.piv_multipass(
+            shard.own(), dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold,
             engine=engine,
         ),
     )
@@ -268,6 +286,9 @@ def piv_pairs_sharded_2d(
     mesh: Optional[Mesh] = None,
     signal_threshold: Optional[float] = None,
     engine: str = "auto",
+    frame0: int = 0,
+    halo: Tuple[int, int] = (0, 0),
+    n_total: Optional[int] = None,
 ):
     """Per-pair PIV over a 2-D ("pairs", "rows") mesh.
 
@@ -276,8 +297,9 @@ def piv_pairs_sharded_2d(
     ``wy - step_y``-row halo (:func:`pad_rows_for_devices`), so each shard is
     independent and nothing is reduced. The default mesh pairs the local
     devices two by two on the row axis (one by one for an odd count). Raises
-    ValueError for a window grid that is not uniform. Returns
-    (u, v, corr_max, s2n), each [T-1, n_rows, n_cols] (numpy).
+    ValueError for a window grid that is not uniform. ``frame0``, ``halo``
+    and ``n_total`` as in :func:`piv_pairs_sharded`. Returns (u, v, corr_max, s2n),
+    each [T-1-sum(halo), n_rows, n_cols] (numpy).
     """
     if mesh is None:
         devices = _device.local_devices()
@@ -291,14 +313,14 @@ def piv_pairs_sharded_2d(
     nb_per, h_slab = _row_slab_layout(n_rows, dr, sas[0], step_y)
     slab_dims = (h_slab, dim_size[1])
     correlate = piv_kernels.piv_pairs_engine(engine)
-    shards = _pair_shards(imgs.shape[0] - 1, dp)
+    shards = _shard_spans(piv_kernels.Span(imgs, frame0, halo, n_total), dp)
     launched = [
         [
-            correlate(_device.to_device(_row_slab(imgs[p0 : p1 + 1], d * nb_per * step_y, h_slab), dev),
-                      slab_dims, sas, ov, nb_per, n_cols, signal_threshold)
+            correlate(_device.to_device(_row_slab(shard.frames, d * nb_per * step_y, h_slab), dev),
+                      slab_dims, sas, ov, nb_per, n_cols, signal_threshold, **shard.place())
             for d, dev in enumerate(row_devices)
         ]
-        for (p0, p1), row_devices in zip(shards, mesh.devices)
+        for shard, row_devices in zip(shards, mesh.devices)
     ]
     # each pair shard's row slabs back together, the padded window rows dropped
     outs = [

@@ -266,6 +266,7 @@ class VelocityFlowProcessor:
         cross: Optional[str] = None,
         cross_wl: Optional[str] = None,
         update: bool = False,
+        concurrency: bool = True,
         fn_piv: str = "piv.nc",
         fn_piv_mask: str = "piv_mask.nc",
         fn_transect_template: str = "transect_{:s}.nc",
@@ -277,6 +278,9 @@ class VelocityFlowProcessor:
         self.output = output
         self.prefix = prefix
         self.update = update
+        # accepted and stored as the JAX package does; nothing reads it (the
+        # stages run one after another either way)
+        self.concurrency = concurrency
         self.fn_video = videofile
         self.cross_section_fn = cross
 
@@ -655,6 +659,7 @@ def velocity_flow_subprocess(
     cross: Optional[dict] = None,
     cross_wl: Optional[dict] = None,
     update: bool = False,
+    concurrency: bool = True,
     logger: logging.Logger = logging,
 ):
     """Run the pipeline in a child ``python -m pyorc_tpu_torch.cli.main velocimetry`` process.
@@ -685,6 +690,8 @@ def velocity_flow_subprocess(
         with open(fn, "w") as f:
             json.dump(payload, f, indent=4)
         argv += [flag, fn]
+    if not concurrency:
+        argv.append("--lowmem")
     if update:
         argv.append("-u")
     if prefix:

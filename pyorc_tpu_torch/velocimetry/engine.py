@@ -2,7 +2,10 @@
 
 Port of :mod:`pyorc_tpu.velocimetry.engine` (reference
 ``pyorc/velocimetry/ffpiv.py:24-474``). Frames stream through the device in
-memory-sized chunks with a one-frame overlap; each chunk runs the per-pair
+memory-sized chunks of ``chunksize - 1`` pairs, each with the kernels' halo
+of frames around it (:class:`pyorc_tpu_torch.ops.piv_kernels.Span`), so a
+pair's result does not depend on the chunk size or on an out-of-memory
+split; each chunk runs the per-pair
 PIV contract through :func:`pyorc_tpu_torch.ops.piv_kernels.piv_pairs_routed`,
 with ``passes > 1`` multi-pass PIV with window deformation through
 :func:`pyorc_tpu_torch.ops.multipass.piv_multipass` (the same kernel on each
@@ -62,12 +65,22 @@ log = logging.getLogger(__name__)
 
 
 def _chunk_plan(n_frames, dim_size, window_size, overlap, search_area_size, chunksize, memory_factor):
-    """Frames per chunk from the device-memory model. Reference ffpiv.py:118-139."""
+    """``chunksize``: a chunk's ``chunksize - 1`` pairs, or ``chunksize`` frames of its own. Reference
+    ffpiv.py:118-139.
+
+    A chunk reaches the device with up to ``sum(HALO)`` frames more, its halo
+    (:meth:`~pyorc_tpu_torch.ops.piv_kernels.Span.cut`). Where the
+    device-memory model splits the stack, the automatic size leaves room for
+    them, so the frames on the device stay within the model's size; a
+    ``chunksize`` the caller gives counts the chunk's own frames.
+    """
     if chunksize is None:
         req = win.required_memory(n_frames, dim_size, window_size, overlap, search_area_size)
         avail = win.available_memory() / memory_factor
         chunks = int(req // avail) + 1
         chunksize = int(np.ceil(n_frames / chunks))
+        if chunks > 1:
+            chunksize -= sum(piv_kernels.HALO)
         if chunksize <= 5:
             warnings.warn(
                 f"Memory availability is poor; chunk size automatically set to 5 (was {chunksize}).",
@@ -131,49 +144,53 @@ def _concat_pairs(left, right):
     return tuple(np.concatenate([a, b], axis=0) for a, b in zip(left, right))
 
 
-def _run_chunk_oom_backoff(fn, chunk, merge=_concat_pairs, min_frames=3):
-    """Run fn(chunk) with halving splits on device OOM.
+def _run_chunk_oom_backoff(fn, span, merge=_concat_pairs):
+    """Run fn(span) with halving splits on device OOM.
 
     Mirrors the reference's shrinking-chunk retry (reference ffpiv.py:13-21):
-    a ``torch.cuda.OutOfMemoryError`` retries the chunk as two halves sharing
-    a one-frame overlap, recursively, and joins the halves' outputs with
-    ``merge`` (by default: concatenated per-pair outputs).
+    a ``torch.cuda.OutOfMemoryError`` retries the chunk's pairs as two halves,
+    each with its halo (:meth:`Span.cut`), recursively, and joins the halves'
+    outputs with ``merge`` (by default: concatenated per-pair outputs).
     """
     try:
-        return fn(chunk)
+        return fn(span)
     except torch.cuda.OutOfMemoryError:
-        if chunk.shape[0] <= min_frames:
+        if span.n_pairs < 2:
             raise
         warnings.warn(
-            f"Device OOM on a {chunk.shape[0]}-frame chunk; retrying as two halves.",
+            f"Device OOM on a {span.n_pairs}-pair chunk; retrying as two halves.",
             stacklevel=2,
         )
-        mid = chunk.shape[0] // 2
-        left = _run_chunk_oom_backoff(fn, chunk[: mid + 1], merge, min_frames)
-        right = _run_chunk_oom_backoff(fn, chunk[mid:], merge, min_frames)
+        mid = span.n_pairs // 2
+        left = _run_chunk_oom_backoff(fn, span.cut(0, mid), merge)
+        right = _run_chunk_oom_backoff(fn, span.cut(mid, span.n_pairs), merge)
         return merge(left, right)
 
 
+def _chunk_bounds(n_frames, chunksize):
+    """(first, end) pairs of each chunk: ``chunksize - 1`` pairs a chunk (``chunksize`` frames)."""
+    per = chunksize - 1
+    return [(p, min(p + per, n_frames - 1)) for p in range(0, n_frames - 1, per)]
+
+
 def _iter_chunks(data, chunksize):
-    """Yield (start_pair_index, frames) with one-frame overlap between chunks.
+    """Yield each chunk as a :class:`~pyorc_tpu_torch.ops.piv_kernels.Span`:
+    its pairs' frames with the kernels' halo, and its first frame's index.
+    Neighbouring chunks share their halo frames, so an in-memory stack goes
+    up to the device with up to ``sum(HALO)`` frames a chunk twice.
 
     ``data`` is an in-memory stack (numpy array or tensor; chunks are views)
     or a lazy video stack, whose chain streams its batches from a prefetch
     thread, on the device when the chain has ops.
     """
-    if isinstance(data, LazyFrames):
-        for start, batch in data.iter_batches(chunksize, overlap=1):
-            if batch.shape[0] >= 2:
-                yield start, batch
+    whole = piv_kernels.Span(data)
+    spans = [whole.cut(a, b) for a, b in _chunk_bounds(data.shape[0], chunksize)]
+    if not isinstance(data, LazyFrames):
+        yield from spans
         return
-    n = data.shape[0]
-    start = 0
-    while start < n - 1:
-        end = min(start + chunksize, n)
-        yield start, data[start:end]
-        if end >= n:
-            break
-        start = end - 1
+    ranges = [(span.frame0, span.frame0 + span.frames.shape[0]) for span in spans]
+    for span, (start, batch) in zip(spans, data.iter_ranges(ranges)):
+        yield span._replace(frames=batch)
 
 
 def get_piv(
@@ -238,42 +255,48 @@ def _piv_timestep(
     dt_vals = np.asarray(dt.values if hasattr(dt, "values") else dt, dtype=np.float64)
     n_pairs = data.shape[0] - 1
 
-    def run_sharded(chunk):
+    def run_sharded(span):
         mesh = parallel.make_mesh(devices)
         if passes > 1:
             return parallel.piv_multipass_sharded(
-                chunk, sas, ov, sas, mesh=mesh, passes=passes, signal_threshold=signal_threshold
+                span.own(), sas, ov, sas, mesh=mesh, passes=passes, signal_threshold=signal_threshold
             )
-        plan = _plan_mesh2d(chunk.shape[0] - 1, n_rows, len(devices))
+        plan = _plan_mesh2d(span.n_pairs, n_rows, len(devices))
         # the 2-D mesh cuts row slabs on window boundaries: a uniform grid only
         if plan is not None and parallel.piv.row_step(dim_size, sas, ov) is not None:
             mesh2d = parallel.piv.Mesh(np.asarray(devices, dtype=object).reshape(plan), ("pairs", "rows"))
             return parallel.piv_pairs_sharded_2d(
-                chunk, sas, ov, sas, mesh=mesh2d, signal_threshold=signal_threshold
+                span.frames, sas, ov, sas, mesh=mesh2d, signal_threshold=signal_threshold, **span.place()
             )
-        return parallel.piv_pairs_sharded(chunk, sas, ov, sas, mesh=mesh, signal_threshold=signal_threshold)
+        return parallel.piv_pairs_sharded(
+            span.frames, sas, ov, sas, mesh=mesh, signal_threshold=signal_threshold, **span.place()
+        )
 
-    def run_one(chunk):
+    def run_one(span):
         if len(devices) > 1:
-            return run_sharded(chunk)
-        frames = to_device(chunk, device)
+            return run_sharded(span)
         if passes > 1:
+            # explicit pairs, one a block: no halo to carry
             out = multipass.piv_multipass(
-                frames, dim_size, sas, ov, n_rows, n_cols, passes=passes, signal_threshold=signal_threshold
+                to_device(span.own(), device), dim_size, sas, ov, n_rows, n_cols, passes=passes,
+                signal_threshold=signal_threshold,
             )
         else:
-            out = piv_kernels.piv_pairs_routed(frames, dim_size, sas, ov, n_rows, n_cols, signal_threshold)
+            out = piv_kernels.piv_pairs_routed(
+                to_device(span.frames, device), dim_size, sas, ov, n_rows, n_cols, signal_threshold,
+                **span.place(),
+            )
         return tuple(to_host(o) for o in out)
 
     us, vs, cms, s2ns = [], [], [], []
     done = 0
-    for _start, chunk in _iter_chunks(data, chunksize):
-        u, v, cmax, s2n = _run_chunk_oom_backoff(run_one, chunk)
+    for span in _iter_chunks(data, chunksize):
+        u, v, cmax, s2n = _run_chunk_oom_backoff(run_one, span)
         us.append(u)
         vs.append(v)
         cms.append(cmax)
         s2ns.append(s2n)
-        done += chunk.shape[0] - 1
+        done += span.n_pairs
         log.info("PIV (per frame pair): %d/%d", done, n_pairs)
     u = np.concatenate(us, axis=0)
     v = np.concatenate(vs, axis=0)
@@ -297,14 +320,15 @@ def _piv_ensemble(
     device = get_device()
     n_pairs_total = data.shape[0] - 1
 
-    def run_one(chunk):
+    def run_one(span):
         if len(devices) > 1:
             return parallel.piv_ensemble_sharded(
-                chunk, sas, ov, sas, mesh=parallel.make_mesh(devices), corr_min=corr_min, s2n_min=s2n_min,
-                signal_threshold=signal_threshold,
+                span.frames, sas, ov, sas, mesh=parallel.make_mesh(devices), corr_min=corr_min, s2n_min=s2n_min,
+                signal_threshold=signal_threshold, **span.place(),
             )
         cs, cc, cmax, s2n = piv_kernels.piv_ensemble_routed(
-            to_device(chunk, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold
+            to_device(span.frames, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold,
+            **span.place(),
         )
         return cs, cc, to_host(cmax), to_host(s2n)
 
@@ -312,13 +336,13 @@ def _piv_ensemble(
     corr_sum, corr_count = 0.0, 0.0
     cms, s2ns = [], []
     done = 0
-    for _start, chunk in _iter_chunks(data, chunksize):
-        cs, cc, cmax, s2n = _run_chunk_oom_backoff(run_one, chunk, _merge_ensemble)
+    for span in _iter_chunks(data, chunksize):
+        cs, cc, cmax, s2n = _run_chunk_oom_backoff(run_one, span, _merge_ensemble)
         corr_sum = corr_sum + cs
         corr_count = corr_count + cc
         cms.append(cmax)
         s2ns.append(s2n)
-        done += chunk.shape[0] - 1
+        done += span.n_pairs
         log.info("PIV (ensemble): %d/%d", done, n_pairs_total)
     corr_sum = to_host(corr_sum)
     corr_count = to_host(corr_count)

@@ -219,17 +219,34 @@ def test_parallel_runs_without_jax_and_starts_no_process_group():
     """)
 
 
+def _jax_imports(path):
+    """The lines of ``path`` that import jax, jaxlib or the JAX package."""
+    offenders = []
+    for line in path.read_text().splitlines():
+        words = line.strip().replace(",", " ").split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            root = words[1].split(".")[0]
+            if root in ("jax", "jaxlib", "pyorc_tpu"):
+                offenders.append(f"{path.relative_to(ROOT)}: {line.strip()}")
+    return offenders
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     """Source check: no module of the port, and not chip_smoke.py, imports jax or pyorc_tpu."""
     offenders = []
     for path in [*sorted((ROOT / "pyorc_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
-        for line in path.read_text().splitlines():
-            words = line.strip().replace(",", " ").split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                root = words[1].split(".")[0]
-                if root in ("jax", "jaxlib", "pyorc_tpu"):
-                    offenders.append(f"{path.relative_to(ROOT)}: {line.strip()}")
+        offenders += _jax_imports(path)
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("name", [
+    "bench_torch.py", "bench_e2e_torch.py", "examples/torch_demo.py", "examples/torch_06_water_level_optical.py",
+    "examples/torch_07_stiv_velocimetry.py",
+])
+def test_benchmarks_and_examples_import_neither_jax_nor_the_jax_package(name):
+    """Source check: the port's benchmark scripts and examples import neither jax nor pyorc_tpu."""
+    assert (ROOT / name).is_file()
+    assert not _jax_imports(ROOT / name)
 
 
 def test_device_defaults_to_cuda_and_refuses_without_it(monkeypatch):

@@ -11,6 +11,7 @@ memory limits, speed) stays with ``tests/test_torch_cuda.py`` and
 """
 
 import contextlib
+import functools
 import re
 import shutil
 import subprocess
@@ -139,8 +140,7 @@ def emulated_library(tmp_path_factory):
         sources[-1].write_text(text)
     lib = out / "libpiv_emulated.so"
     proc = subprocess.run(
-        # PIV_SMS=0: no grid is too small for the per-pair kernel to walk runs of pairs
-        [gxx, "-std=c++20", "-O2", "-DPIV_SMS=0", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
+        [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
          *map(str, sources)],
         capture_output=True, text=True,
     )
@@ -373,12 +373,19 @@ def test_ensemble_kernel_code_plan_classes(kernels, size, n_frames):
     _compare_ensemble(out_k, out_p, 0.1)
 
 
-@pytest.mark.parametrize("n_frames", [5, 6], ids=["4-pairs", "5-pairs"])
-@pytest.mark.parametrize("size", [16, 26, 64, 24, 75, (26, 64), (66, 16)], ids=_plan_id)
+# (size, frames): 4 and 5 pairs at every class of side; 18 and 19 pairs at 16, 26 and 64 px
+RUN_CASES = [(size, n) for size in (16, 26, 64, 24, 75, (26, 64), (66, 16)) for n in (5, 6)]
+RUN_CASES += [(size, n) for size in (16, 26, 64) for n in (19, 20)]
+
+
+@pytest.mark.parametrize("size,n_frames", RUN_CASES, ids=[f"{_plan_id(s)}-{n - 1}-pairs" for s, n in RUN_CASES])
 def test_pairs_kernel_code_runs_of_pairs(kernels, size, n_frames):
-    """Consecutive pairs in runs (a block walks up to 15 pairs of its window,
-    each frame transformed once, two planes per inverse): 4 pairs are a run of
-    3 and one of 1, 5 pairs one run of 5; a zero-variance row of windows."""
+    """Consecutive pairs in runs (a block walks a run of 15 pairs of its
+    window, each frame transformed once, two planes per inverse): 4 and 5
+    pairs are the first run cut short by the stack's end, with an even and
+    an odd tail; 18 and 19 pairs cross into a second run at pair 15 (its
+    first step, its cached spectrum, its frames), held to the plain version
+    there; a zero-variance row of windows."""
     wy, wx = win._as2(size)
     rng = np.random.default_rng(wy + 1000 * wx + n_frames)
     steps = (wy // 2, wx // 2)
@@ -392,3 +399,227 @@ def test_pairs_kernel_code_runs_of_pairs(kernels, size, n_frames):
     out_p = kernels.piv_pairs_fused_plain(frames, *args)
     assert out_p[0].shape[0] == n_frames - 1 and torch.isnan(out_p[0]).any()
     _compare(out_k, out_p, _gap(frames, *args[:3], 1, out_p[0].shape))
+
+
+# ---------------------------------------------------------------- split launches
+# A pair's outputs are a function of the stack and its absolute index alone:
+# any split of a stack into launches, each a Span with its absolute first frame
+# and halo, gives the whole stack's per-pair outputs bit for bit.
+
+
+def _bits(t):
+    return t.numpy().view(np.int32)
+
+
+def _split_stack(size, n_frames, dtype, seed):
+    rng = np.random.default_rng(seed)
+    stack = _frames(rng, n_frames, size, size + size // 2, dtype=dtype)
+    stack[n_frames // 3, :, :size] = 0  # a zero-variance window in one frame
+    frames = torch.as_tensor(stack)
+    return frames, _grid(size, size + size // 2, size, size // 2)
+
+
+def _pieces(n_pairs, cuts):
+    """(first, end) pair bounds of the pieces that ``cuts`` make of ``n_pairs`` pairs."""
+    bounds = [0, *cuts, n_pairs]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _launch_span(kernels, span, args, threshold=None):
+    sas, steps = args[1], (args[1][0] - args[2][0], args[1][1] - args[2][1])
+    return kernels._launch(span.frames, sas, steps, *args[3:], threshold, 1, span.frame0, span.halo, span.total)
+
+
+# 19 and 20 frames: 18 and 19 pairs, past the first run of 15 (an even and an odd
+# tail); cuts at every pair, so inside runs, on the run boundary (15) and next to it
+SPLIT_CASES = [(16, 19, np.uint8), (16, 20, np.float32), (26, 20, np.uint8), (26, 19, np.float32)]
+
+
+@pytest.mark.parametrize("size,n_frames,dtype", SPLIT_CASES, ids=lambda v: getattr(v, "__name__", str(v)))
+def test_pairs_kernel_split_launches_are_bitwise_whole(kernels, size, n_frames, dtype):
+    frames, args = _split_stack(size, n_frames, dtype, size + n_frames)
+    whole_span = kernels.Span(frames)
+    whole = _launch_span(kernels, whole_span, args)
+    n_pairs = n_frames - 1
+    assert torch.isnan(whole[0]).any()
+    for cut in range(1, n_pairs):
+        parts = [_launch_span(kernels, whole_span.cut(a, b), args) for a, b in _pieces(n_pairs, [cut])]
+        for k in range(4):
+            joined = torch.cat([p[k] for p in parts])
+            assert np.array_equal(_bits(joined), _bits(whole[k])), (cut, k)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=["u8", "f32"])
+def test_pairs_kernel_split_launches_64px(kernels, dtype):
+    """64 px, a split in three and nested cuts (a piece of a piece, as an
+    out-of-memory half of an engine chunk cuts it)."""
+    frames, args = _split_stack(64, 19, dtype, 64)
+    whole_span = kernels.Span(frames)
+    whole = _launch_span(kernels, whole_span, args)
+    for cuts in ([1, 16], [7, 15], [14, 17]):
+        parts = [_launch_span(kernels, whole_span.cut(a, b), args) for a, b in _pieces(18, cuts)]
+        for k in range(4):
+            assert np.array_equal(_bits(torch.cat([p[k] for p in parts])), _bits(whole[k])), (cuts, k)
+    chunk = whole_span.cut(3, 17)
+    halves = [_launch_span(kernels, chunk.cut(a, b), args) for a, b in ((0, 7), (7, 14))]
+    for k in range(4):
+        assert np.array_equal(_bits(torch.cat([p[k] for p in halves])), _bits(whole[k][3:17])), k
+
+
+@pytest.mark.parametrize("size,n_frames,dtype", [(16, 9, np.uint8), (26, 10, np.float32), (64, 9, np.float32)],
+                         ids=["16-8pairs-u8", "26-9pairs-f32", "64-8pairs-f32"])
+def test_ensemble_kernel_split_launches(kernels, size, n_frames, dtype):
+    """Per-pair cmax, s2n and gates bitwise, counts equal, corr_sum a sum of
+    partial sums within 1e-6 relative, at every cut."""
+    frames, args = _split_stack(size, n_frames, dtype, 7 * size + n_frames)
+    sas, steps = args[1], (size // 2, size // 2)
+    whole_span = kernels.Span(frames)
+
+    def run(span):
+        return kernels._launch_ensemble(span.frames, sas, steps, *args[3:], 0.1, 1.5, None, **span.place())
+
+    whole = run(whole_span)
+    assert (whole[1] > 0).all() and (whole[1] < n_frames - 1).any()
+    for cut in range(1, n_frames - 1):
+        parts = [run(whole_span.cut(a, b)) for a, b in _pieces(n_frames - 1, [cut])]
+        for k in (2, 3):
+            assert np.array_equal(_bits(torch.cat([p[k] for p in parts])), _bits(whole[k])), (cut, k)
+        assert torch.equal(sum(p[1] for p in parts), whole[1]), cut
+        corr_sum = sum(p[0] for p in parts)
+        assert ((corr_sum - whole[0]).abs() <= 1e-6 * whole[0].abs().amax()).all(), cut
+
+
+@pytest.mark.parametrize("size", [32, 104])
+def test_stride2_launches_unchanged(kernels, size):
+    """Explicit pairs (pair_stride=2, multipass) run one pair a block: split
+    launches equal the whole launch, and both hold to the plain version."""
+    rng = np.random.default_rng(size)
+    h, w = size + size // 2 + 3, 2 * size + 1
+    frames = torch.as_tensor(_frames(rng, 6, h, w, dtype=np.float32))
+    args = _grid(h, w, size, size // 2)
+    steps = (size // 2, size // 2)
+    whole = kernels._launch(frames, args[1], steps, *args[3:], None, 2)
+    parts = [kernels._launch(frames[a:b], args[1], steps, *args[3:], None, 2) for a, b in ((0, 2), (2, 6))]
+    for k in range(4):
+        assert np.array_equal(_bits(torch.cat([p[k] for p in parts])), _bits(whole[k])), k
+    out_p = kernels.piv_pairs_fused_plain(frames, *args, pair_stride=2)
+    _compare(whole, out_p, _gap(frames, *args[:3], 2, out_p[0].shape))
+
+
+@pytest.mark.parametrize("route", ["pairs_kernel", "ensemble_kernel", "pairs_plain", "ensemble_plain"])
+def test_launch_halo_checked_on_both_sides(kernels, route):
+    """A launch placed in a stack must hold the halo the stack has on both
+    sides: the cuts of :meth:`Span.cut` run, a piece without its right halo
+    or without the stack's frame count raises, and the stack's last piece
+    needs no right halo."""
+    frames, args = _split_stack(16, 12, np.uint8, 5)
+    sas, steps = args[1], (8, 8)
+    run = {
+        "pairs_kernel": lambda f, **kw: kernels._launch(f, sas, steps, *args[3:], None, 1, **kw),
+        "ensemble_kernel": lambda f, **kw: kernels._launch_ensemble(f, sas, steps, *args[3:], 0.1, 1.5, None, **kw),
+        "pairs_plain": lambda f, **kw: kernels.piv_pairs_fused_plain(f, *args, **kw),
+        "ensemble_plain": lambda f, **kw: kernels.piv_ensemble_fused_plain(f, *args, 0.1, 1.5, **kw),
+    }[route]
+    whole = kernels.Span(frames)
+    middle, last = whole.cut(3, 7), whole.cut(7, 11)
+    assert (middle.halo, middle.total, last.halo, last.total) == ((2, 1), 12, (2, 0), 12)
+    assert middle.cut(1, 3).place() == {"frame0": 2, "halo": (2, 1), "n_total": 12}
+    run(middle.frames, **middle.place())
+    run(last.frames, **last.place())
+    with pytest.raises(ValueError, match="halo after"):  # the middle piece's frames without its right halo
+        run(middle.frames[:-1], frame0=middle.frame0, halo=(2, 0), n_total=12)
+    with pytest.raises(ValueError, match="halo before"):
+        run(middle.frames[1:], frame0=middle.frame0 + 1, halo=(1, 1), n_total=12)
+    with pytest.raises(ValueError, match="needs n_total"):
+        run(middle.frames, frame0=middle.frame0, halo=middle.halo)
+    with pytest.raises(ValueError, match="outside a stack"):
+        run(last.frames, frame0=last.frame0, halo=last.halo, n_total=11)
+
+
+def test_automatic_chunks_leave_room_for_the_halo(monkeypatch):
+    """The automatic chunk size counts a chunk's halo where the memory model
+    splits the stack; a stack that fits is one chunk; a given size is kept."""
+    from pyorc_tpu_torch.velocimetry import engine
+
+    monkeypatch.setattr(win, "required_memory", lambda *a: 4000)
+    monkeypatch.setattr(win, "available_memory", lambda: 1000)  # 4000 / (1000 / 2) + 1 = 9 chunks
+    plan = functools.partial(engine._chunk_plan, 90, (64, 64), (16, 16), (8, 8), (16, 16))
+    assert plan(None, 2) == 90 // 9 - sum(piv_kernels.HALO)
+    assert plan(17, 2) == 17
+    monkeypatch.setattr(win, "available_memory", lambda: 10**6)
+    assert plan(None, 2) == 90
+
+
+@pytest.fixture
+def emulated_routes(kernels, monkeypatch):
+    """The wrappers' CPU route swapped for the emulated kernels, so that the
+    engine's chunks and the sharded functions' shards launch kernel code."""
+
+    def pairs(imgs, dim_size, sas, overlap, n_rows, n_cols, signal_threshold=None, pair_stride=1, frame0=0,
+              halo=(0, 0), n_total=None):
+        sas, overlap = win._as2(sas), win._as2(overlap)
+        steps = kernels._grid_steps(dim_size, sas, overlap, n_rows, n_cols)
+        return kernels._launch(imgs, sas, steps, n_rows, n_cols, signal_threshold, pair_stride, frame0, halo, n_total)
+
+    def ensemble(imgs, dim_size, sas, overlap, n_rows, n_cols, corr_min=0.2, s2n_min=3.0, signal_threshold=None,
+                 frame0=0, halo=(0, 0), n_total=None):
+        sas, overlap = win._as2(sas), win._as2(overlap)
+        steps = kernels._grid_steps(dim_size, sas, overlap, n_rows, n_cols)
+        return kernels._launch_ensemble(
+            imgs, sas, steps, n_rows, n_cols, corr_min, s2n_min, signal_threshold, frame0, halo, n_total
+        )
+
+    monkeypatch.setattr(kernels, "piv_pairs_fused", pairs)
+    monkeypatch.setattr(kernels, "piv_ensemble_fused", ensemble)
+    return kernels
+
+
+def test_engine_chunks_and_shards_launch_bitwise_whole(emulated_routes):
+    """The engine's chunks (automatic sizes 3, 5, 17 frames), a chunk's
+    out-of-memory halves and the sharded functions' pair shards give the
+    whole stack's per-pair bits; the ensemble's per-pair cmax and s2n too."""
+    from pyorc_tpu_torch import parallel
+    from pyorc_tpu_torch.velocimetry import engine
+
+    kernels = emulated_routes
+    rng = np.random.default_rng(11)
+    frames = torch.as_tensor(_frames(rng, 20, 32, 24))
+    frames[6, :16, :16] = 0  # a zero-variance window in one frame
+    args = _grid(32, 24, 16, 8)
+    dims, sas, overlap = args[:3]
+    whole = [x.numpy() for x in kernels.piv_pairs_routed(frames, *args)]
+
+    def same(out, want):
+        for k in range(len(want)):
+            assert np.array_equal(np.asarray(out[k]).view(np.int32), want[k].view(np.int32)), k
+
+    def run(span):
+        return tuple(x.numpy() for x in kernels.piv_pairs_routed(span.frames, *args, **span.place()))
+
+    for chunksize in (3, 5, 17):
+        joined = [run(span) for span in engine._iter_chunks(frames, chunksize)]
+        same([np.concatenate(column) for column in zip(*joined)], whole)
+    failed = []
+
+    def half_only(span):
+        if span.n_pairs > 6:
+            failed.append(span.n_pairs)
+            raise torch.cuda.OutOfMemoryError("too large")
+        return run(span)
+
+    with pytest.warns(UserWarning, match="two halves"):
+        same(engine._run_chunk_oom_backoff(half_only, kernels.Span(frames)), whole)
+    assert failed == [19, 9, 10]
+    cpu = torch.device("cpu")
+    mesh = parallel.piv.Mesh([cpu] * 3, ("pairs",))
+    same(parallel.piv_pairs_sharded(frames, sas, overlap, mesh=mesh), whole)
+    mesh2d = parallel.piv.Mesh(np.asarray([cpu] * 4, dtype=object).reshape(2, 2), ("pairs", "rows"))
+    same(parallel.piv_pairs_sharded_2d(frames, sas, overlap, mesh=mesh2d), whole)
+    chunk = kernels.Span(frames).cut(4, 13)  # an engine chunk, sharded
+    sharded = parallel.piv_pairs_sharded(chunk.frames, sas, overlap, mesh=mesh, **chunk.place())
+    same(sharded, [w[4:13] for w in whole])
+    ens_whole = [x.numpy() for x in kernels.piv_ensemble_routed(frames, *args, 0.1, 1.5)]
+    ens = parallel.piv_ensemble_sharded(frames, sas, overlap, mesh=mesh, corr_min=0.1, s2n_min=1.5)
+    same(ens[2:], ens_whole[2:])
+    assert np.array_equal(ens[1], ens_whole[1])
+    np.testing.assert_allclose(ens[0], ens_whole[0], rtol=0, atol=1e-6 * np.abs(ens_whole[0]).max())

@@ -152,7 +152,7 @@ def _hold_to_jax(got, want, calls, tol=1e-3):
     """u, v within ``tol`` px where the port's last-pass top-2 gap exceeds 5e-3;
     cmax within 1e-4 and s2n within 1e-3 relative where JAX's is finite."""
     pairs, args, kwargs = calls[-1]
-    assert kwargs == {"pair_stride": 2}
+    assert kwargs == {"pair_stride": 2, "frame0": 0, "halo": (0, 0), "n_total": None}
     gap = tpiv.top2_gap(pairs, *args[:3], 2).reshape(got[0].shape).numpy()
     u, v, cmax, s2n = (x.numpy() for x in got)
     ju, jv, jcmax, js2n = (np.asarray(x) for x in want)

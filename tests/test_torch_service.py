@@ -535,8 +535,9 @@ def test_cli_refusals(inputs, tmp_path, monkeypatch):
     """``--num-hosts 2 --host-id {0,1} --coordinator 127.0.0.1:<port>``: two CLI processes on the CPU
     (``PYORC_TPU_TORCH_DEVICE=cpu``, gloo) each run their frame segment of the clip and write
     ``host00<i>_piv.nc``; stitched in pair order they equal the one-host ``piv.nc`` of the whole clip,
-    and host 0's ``manifest.json`` is what JAX's CLI writes. ``--lowmem`` is still not an option of the
-    port. (The name is kept from when ``--num-hosts`` > 1 was refused.) The recipe has no ``normalize``:
+    and host 0's ``manifest.json`` is what JAX's CLI writes. ``--lowmem`` is accepted and changes
+    nothing, as in JAX's CLI. (The name is kept from when ``--num-hosts`` > 1 and ``--lowmem`` were
+    refused.) The recipe has no ``normalize``:
     its mean image is taken over a host's own segment, so the segments would not stitch to one run."""
     from pyorc_tpu.cli import main as jmain
     from pyorc_tpu.parallel import distributed as jdist
@@ -575,4 +576,40 @@ def test_cli_refusals(inputs, tmp_path, monkeypatch):
     result = CliRunner().invoke(tcli_main, [
         "velocimetry", "-V", inputs["clip"], "-c", inputs["cc"], "-r", str(fn_recipe), "--lowmem", str(tmp_path / "x"),
     ])
-    assert result.exit_code == 2 and "No such option" in result.output, result.output
+    assert result.exit_code == 0, result.output
+    lowmem = pyorc_tpu_torch.open_dataset(str(tmp_path / "x" / "piv.nc"))
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        np.testing.assert_array_equal(lowmem[name].values, whole[name].values, err_msg=name)
+
+
+def test_engine_names_and_concurrency_as_jax(inputs, outputs, tmp_path, monkeypatch):
+    """A recipe with ``get_piv: {engine: numba}`` runs through both services with
+    ``concurrency=False`` and gives the default run's files; an unknown engine
+    fails the velocimetry stage in both; ``velocity_flow_subprocess(concurrency=False)`` passes
+    ``--lowmem`` to the child, as JAX's does."""
+    recipe = copy.deepcopy(inputs["recipe"])
+    recipe["velocimetry"]["get_piv"]["engine"] = "numba"
+    got = _run(tsvc, tcli, inputs, tmp_path / "torch", recipe, concurrency=False)
+    want = _run(jsvc, jcli, inputs, tmp_path / "jax", recipe, concurrency=False)
+    _hold_outputs(got, want)
+    for fn in ("piv.nc", "transect_transect_1.nc"):
+        a, b = (pyorc_tpu_torch.open_dataset(os.path.join(d, fn)) for d in (got, outputs["torch"]))
+        for name in a.data_vars:
+            np.testing.assert_array_equal(a[name].values, b[name].values, err_msg=f"{fn} {name}")
+    assert tsvc.VelocityFlowProcessor(
+        recipe=tcli.validate_recipe(copy.deepcopy(inputs["recipe"])), videofile=inputs["clip"],
+        cameraconfig=tcli.parse_camconfig(None, None, inputs["cc"]), prefix="", output=str(tmp_path / "p"),
+        h_a=0.0, concurrency=False,
+    ).concurrency is False
+    recipe["velocimetry"]["get_piv"]["engine"] = "opencv"
+    for svc, cli_utils, out in ((tsvc, tcli, "torch_bad"), (jsvc, jcli, "jax_bad")):
+        with pytest.raises(RuntimeError, match='stage "velocimetry" failed: Selected PIV engine opencv does not exist'):
+            _run(svc, cli_utils, inputs, tmp_path / out, recipe)
+    argvs = []
+    monkeypatch.setattr(tsvc.subprocess, "run", lambda argv, **kwargs: argvs.append(argv))
+    for concurrency in (True, False):
+        tsvc.velocity_flow_subprocess(
+            inputs["clip"], copy.deepcopy(inputs["recipe"]), tcli.parse_camconfig(None, None, inputs["cc"]),
+            str(tmp_path / "sub"), h_a=0.0, concurrency=concurrency,
+        )
+    assert ["--lowmem" in argv for argv in argvs] == [False, True]

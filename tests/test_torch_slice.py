@@ -176,3 +176,46 @@ def test_non_square_chain_matches_jax(projected, monkeypatch):
     assert abs(res_t["Q"] - q_median) < 0.01 * abs(q_median)
     for name in ("v_x", "v_y"):
         assert abs(res_t[name] - res_t[name + "_true"]) < chip_smoke.NS_VEL_TOL
+
+
+def test_jax_argument_names_run(projected, monkeypatch):
+    """What JAX's ``Frames`` takes, the port takes: ``project(method="cv")`` is the
+    index-map projection to the bit, ``get_piv(engine=...)`` runs the port's route
+    for "jax", "numba" and "numpy" with the same fields as JAX's, and any other
+    engine raises ``ValueError`` before any work, as JAX's does."""
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    cc_t, cc_j, proj_t, proj_j = projected
+    stack = chip_smoke.advected_stack(H_IMG, W_IMG, 4, "cpu")
+    normalized = chip_smoke.frames_dataarray(stack, cc_t).frames.normalize(samples=4)
+    cv = normalized.frames.project(method="cv")
+    np.testing.assert_array_equal(cv.values, normalized.frames.project(method="numpy").values)
+    np.testing.assert_array_equal(
+        cv.values,
+        np.asarray(chip_smoke.frames_dataarray(stack, cc_j, pyorc_tpu).frames.normalize(samples=4)
+                   .frames.project(method="cv").values),
+    )
+    kw = dict(window_size=32, overlap=(16, 16))
+    want = proj_t[:5].frames.get_piv(**kw)
+    for engine in ("jax", "numba", "numpy"):
+        got = proj_t[:5].frames.get_piv(engine=engine, **kw)
+        for name in ("v_x", "v_y", "corr", "s2n"):
+            np.testing.assert_array_equal(got[name].values, want[name].values, err_msg=f"{engine} {name}")
+    jax_numba = proj_j[:5].frames.get_piv(engine="numba", **kw)
+    np.testing.assert_allclose(want["v_x"].values, np.asarray(jax_numba["v_x"].values), atol=2e-3)
+    ran = []
+    monkeypatch.setattr(piv_kernels, "piv_pairs_fused", lambda *a, **k: ran.append(1))
+    for package_frames in (proj_t, proj_j):
+        with pytest.raises(ValueError, match="engine opencv does not exist"):
+            package_frames[:5].frames.get_piv(engine="opencv", **kw)
+    assert ran == []
+
+
+def test_chip_smoke_engine_chunks_step_on_cpu(projected, monkeypatch):
+    """Step 5h of chip_smoke.py at 480x640: get_piv at chunk sizes 5, 17 and the automatic plan
+    against one chunk, at 16 px (the plain version on the CPU; the card's kernels are held bitwise
+    by the same step there and by tests/test_torch_kernel_emulation.py here)."""
+    monkeypatch.setenv("PYORC_TPU_SHARD", "0")
+    _, _, proj_t, _ = projected
+    ref = proj_t.frames.get_piv(window_size=16, overlap=(8, 8))
+    out = chip_smoke.engine_chunks_check(proj_t, {16: ref})
+    assert out[16]["bitwise"] and set(out[16]["launches"]) == {"one launch", "5", "17", "automatic"}

@@ -279,6 +279,23 @@ def test_lazy_chain_moves_frames_once(clips, cameras):
     assert _device.COPY_BYTES == {"h2d": n * H * W, "d2h": n_out}
 
 
+def test_lazy_chunks_carry_the_kernels_halo(clips, cameras):
+    """The engine's chunks of a lazy stack are those of the same stack in memory:
+    the same frames, first frame and halo (the batches overlap by four frames,
+    decoded once)."""
+    from pyorc_tpu_torch.velocimetry import engine
+
+    vt, _ = _videos(clips[0], cameras)
+    lazy = vt.get_frames().frames.normalize(samples=4).data
+    mem = np.asarray(lazy)
+    for chunksize in (3, 5, 6, 40):
+        got, want = list(engine._iter_chunks(lazy, chunksize)), list(engine._iter_chunks(mem, chunksize))
+        assert [(g.frame0, g.halo) for g in got] == [(w.frame0, w.halo) for w in want]
+        assert sum(w.n_pairs for w in want) == mem.shape[0] - 1
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_device.to_host(g.frames), w.frames)
+
+
 def test_upload_crop_switch_is_a_boolean(monkeypatch):
     from pyorc_tpu_torch.api import frames
 
