@@ -33,6 +33,14 @@
    project -> get_piv (16 and 26 px) -> mask -> get_transect -> get_q ->
    get_river_flow, checked against the analytic velocity and discharge.
    The per-pair kernel's launches in this run are counted.
+4b. Host stages on the card: the ortho index maps of the 1080p slice's camera,
+   the 4K ensemble camera and Geul's camera (step 5e's) built as float64 tensor
+   ops on the card and by the host numpy, every field equal, both walls
+   printed, and every cell's projected pixel coordinates on the card bit for
+   bit the host's; then ``get_transect`` on step 4's 16 and 26 px PIV with the window
+   median on the cells the sample points read (the port's) and on the whole
+   stacked field (the reference's form, kept here as the check), equal bit for
+   bit, both walls printed.
 5. Per-pair main-path check: the projected stack the slice gave the kernel
    is run through the kernel and its plain version again, at the slice's
    window grids; the kernel's output must also be the velocity field the
@@ -795,12 +803,18 @@ def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100,
     Checks, for each window: the slice's bars (``check_chain``: VEL_TOL per pair,
     ENS_VEL_RTOL for the ensemble, Q_TOL); v_x, v_y, corr and s2n against the
     in-memory slice's: bit for bit, but the ensemble's and ``Video``'s v_x and
-    v_y within 1e-5 (the largest differences are returned); that normalize and project moved no frames, that get_piv
+    v_y within 1e-5 (the largest differences are returned); that normalize and project moved no frames
+    (project downloads, off the host, the index maps it built on the device, and nothing else), that get_piv
     downloaded its outputs and nothing else and uploaded at most one stack.
     Returns (per-window results, stage times, per-stage rows: wall, bytes up and
     down, the frame source's seconds and share of the wall; the projected lazy frames).
     """
+    from unittest import mock
+
+    import torch
+
     import pyorc_tpu_torch
+    from pyorc_tpu_torch.ops import ortho as ortho_ops
 
     pyorc_tpu_torch.set_device(device)
     if video_file is None:
@@ -822,12 +836,22 @@ def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100,
     with _stage(times, f"normalize[{tag}]"):
         norm = da.frames.normalize(samples=15)
     row(f"normalize[{tag}]", source.seconds - t_src)
-    with _stage(times, f"project[{tag}]"):
+    built = []
+
+    def recorded(*args, **kwargs):
+        built.append(build_maps(*args, **kwargs))
+        return built[-1]
+
+    build_maps = ortho_ops.build_ortho_maps
+    with _stage(times, f"project[{tag}]"), mock.patch.object(ortho_ops, "build_ortho_maps", recorded):
         proj = norm.frames.project()
     row(f"project[{tag}]", 0.0)
-    for name in (f"normalize[{tag}]", f"project[{tag}]"):
-        if MOVED[name]["d2h"]:
-            raise AssertionError(f"{name} downloaded {MOVED[name]['d2h']} bytes")
+    # off the host the index maps are built on the device and come down once: nothing else may
+    maps_bytes = 0 if torch.device(device).type == "cpu" else sum(
+        a.nbytes for maps in built for a in maps if isinstance(a, np.ndarray))
+    for name, want in ((f"normalize[{tag}]", 0), (f"project[{tag}]", maps_bytes)):
+        if MOVED[name]["d2h"] != want:
+            raise AssertionError(f"{name} downloaded {MOVED[name]['d2h']} bytes, not {want}")
     for w_px, ref in ref_pivs.items():
         sub = tag if ensemble else f"{tag} {_fmt(w_px)}px"
         t_src = source.seconds
@@ -1926,6 +1950,112 @@ def fft_alone_ms(proj, device, window=ENS_WINDOW, chunk=10):
     return total
 
 
+def ortho_grid(cc, h_a=H_A):
+    """The grid and plane elevation ``Frames.project`` builds its ortho maps on: (x, y, z)."""
+    rows, cols = cc.shape
+    y = np.flipud(np.linspace(cc.resolution / 2, cc.resolution * (rows - 0.5), rows))
+    x = np.linspace(cc.resolution / 2, cc.resolution * (cols - 0.5), cols)
+    return x, y, cc.get_z_a(h_a)
+
+
+def whole_field_effective(ds, cells, tolerance, **window):
+    """``get_transect``'s windowed median over the whole stacked field, as the reference computes it
+    (the check of step 4b; the port computes it at the sampled ``cells`` only)."""
+    from pyorc_tpu_torch import helpers
+
+    ds_wdw = helpers.stack_window(ds, **window)
+    missing_tolerance = ds_wdw.mean(dim="time").count(dim="stride") > tolerance * ds_wdw.sizes["stride"]
+    return ds_wdw.median(dim="stride").where(missing_tolerance)
+
+
+def _same_dataset(got, want, label):
+    """Every variable and coordinate of ``got`` equal to ``want``'s, bit for bit (NaN in the same places)."""
+    if list(got.data_vars) != list(want.data_vars) or list(got.coords) != list(want.coords):
+        raise AssertionError(f"{label}: variables or coordinates differ")
+    for name in list(want.data_vars) + list(want.coords):
+        a, b = np.asarray(want[name].values), np.asarray(got[name].values)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"{label}: {name} differs")
+
+
+def host_stages_phase(pivs, cc, device, cameras=None, aoi_px=100):
+    """Step 4b: the main path's two former host stages, on the card and held to the host.
+
+    (a) The ortho index maps of each camera of ``cameras`` ({name: (CameraConfig, h_a)};
+    default the 1080p slice's nadir camera, the 4K ensemble camera and Geul's) built as
+    tensor ops on ``device`` (``build_ortho_maps_tensor``, what ``project`` runs on a card)
+    and by the host numpy (``device="cpu"``): every field equal; and every cell's projected
+    pixel coordinates (``project_points_tensor`` on ``device``) bit for bit the host's
+    ``project_points``. (b) ``get_transect`` on
+    each of ``pivs`` (window px -> the slice's PIV dataset, on the camera ``cc``), masked as
+    :func:`run_chain` masks it, with the window median on the sampled cells (the port's)
+    and on the whole field (:func:`whole_field_effective`): every variable and coordinate
+    equal, bit for bit. Returns the walls: maps on the card (first call, then a second),
+    on the host; each transect both ways.
+    """
+    import torch
+    from unittest import mock
+
+    from pyorc_tpu_torch._device import to_device, to_host
+    from pyorc_tpu_torch.api import velocimetry as vel_mod
+    from pyorc_tpu_torch.geom import affine as aff
+    from pyorc_tpu_torch.geom import camera as cam
+    from pyorc_tpu_torch.ops import ortho as ortho_ops
+
+    if cameras is None:
+        cameras = {
+            "nadir 1920x1080": (nadir_camera_config(1080, 1920), H_A),
+            "nadir 3840x2160 (ensemble)": (nadir_camera_config(*ENS_SHAPE, window_size=ENS_WINDOW, **ENS_CAMERA), H_A),
+            "geul 1920x1080": (geul_camera_config(), GEUL_H),
+        }
+    cuda = torch.device(device).type == "cuda"
+    out = {"maps": {}, "transect": {}}
+    for name, (cam_cc, h_a) in cameras.items():
+        x, y, z = ortho_grid(cam_cc, h_a)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            card = ortho_ops.build_ortho_maps_tensor(cam_cc, x, y, z, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host = ortho_ops.build_ortho_maps(cam_cc, x, y, z, device="cpu")
+        host_s = time.perf_counter() - t0
+        for field in host._fields:
+            a, b = getattr(host, field), getattr(card, field)
+            same = (a is None and b is None) if a is None or b is None else (
+                np.array_equal(a, b) and a.dtype == b.dtype if isinstance(a, np.ndarray) else a == b)
+            if not same:
+                raise AssertionError(f"ortho maps of {name}: {field} built on {device} differs from the host's")
+        cols, rows = np.meshgrid(np.arange(len(x)), np.arange(len(y)))
+        points = np.column_stack([*aff.pixel_to_map(cols.ravel(), rows.ravel(), cam_cc.transform), np.full(cols.size, z)])
+        pose = (np.array(cam_cc.rvec, dtype=np.float64), np.array(cam_cc.tvec, dtype=np.float64),
+                np.array(cam_cc.camera_matrix), np.array(cam_cc.dist_coeffs))
+        card_px = to_host(cam.project_points_tensor(to_device(points, device), *pose))
+        if not np.array_equal(card_px, cam.project_points(points, *pose), equal_nan=True):
+            raise AssertionError(f"{name}: projected pixel coordinates on {device} differ from the host's bits")
+        out["maps"][name] = {
+            "cells": len(x) * len(y), "mean_groups": 0 if host.counts is None else len(host.counts),
+            "separable": host.row_idx is not None, "card_first_s": walls[0], "card_s": walls[1], "host_s": host_s,
+        }
+    for w_px, piv in pivs.items():
+        mask = piv.velocimetry.mask
+        masked = piv.velocimetry.mask([mask.minmax(), mask.corr(), mask.count()])
+        points = transect_points(cc, aoi_px=aoi_px)
+        t0 = time.perf_counter()
+        cells = masked.velocimetry.get_transect(*points)
+        cells_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with mock.patch.object(vel_mod, "_window_effective", whole_field_effective):
+            whole = masked.velocimetry.get_transect(*points)
+        whole_s = time.perf_counter() - t0
+        _same_dataset(cells, whole, f"get_transect at {w_px} px")
+        out["transect"][w_px] = {"sampled_cells_s": cells_s, "whole_field_s": whole_s,
+                                 "finite_v_x": int(np.isfinite(cells["v_x"].values).sum())}
+    return out
+
+
 def main_path_check(proj, pivs, device, reps=10):
     """The per-pair kernel against its plain version on the stack and grids the slice gave it.
 
@@ -2913,6 +3043,11 @@ def main(argv) -> int:
     wall = time.perf_counter() - t0
     print(f"slice 1920x1080x126: wall {wall:.3f} s; stages " + json.dumps({k: round(v, 4) for k, v in times.items()}))
     print("slice results " + json.dumps(results))
+    t0 = time.perf_counter()
+    stages = host_stages_phase(pivs, nadir_camera_config(1080, 1920), device)
+    print(f"host stages on the card step 4b ({_card_line()}): wall {time.perf_counter() - t0:.3f} s; "
+          "maps on the card equal to the host's, transect on the sampled cells equal to the whole field's: "
+          + json.dumps(stages), flush=True)
     main_errs = main_path_check(proj, pivs, device)
     t0 = time.perf_counter()
     engine = engine_chunks_check(proj, pivs)

@@ -589,6 +589,72 @@ class CameraConfig:
         uidx, norm_idx = np.unique(filtered_idx, return_inverse=True)
         return src_idx, uidx, norm_idx
 
+    def map_idx_img_ortho_tensor(self, x, y, z, device) -> Tuple["torch.Tensor", "torch.Tensor"]:
+        """:meth:`map_idx_img_ortho` as float64 tensor ops on ``device``: (idx_img int64, idx_ortho bool).
+
+        The same values as the host method: every projected coordinate is
+        rounded as numpy rounds it, and the bounds are tested on the rounded
+        floats (a NaN coordinate fails them, as its host int64 does).
+        """
+        import torch
+
+        ny, nx = len(y), len(x)
+        flat = torch.arange(ny * nx, dtype=torch.int64, device=device)
+        xs, ys = aff.pixel_to_map_tensor(flat % nx, flat // nx, self.transform)
+        points = torch.stack([xs, ys, torch.full_like(xs, float(z))], dim=-1)
+        proj = cam.project_points_tensor(
+            points, np.array(self.rvec, dtype=np.float64), np.array(self.tvec, dtype=np.float64),
+            np.array(self.camera_matrix), np.array(self.dist_coeffs),
+        )
+        col, row = torch.round(proj[:, 0]), torch.round(proj[:, 1])
+        idx_ortho = (col > 0) & (col < self.width) & (row > 0) & (row < self.height)
+        if not bool(idx_ortho.any()):
+            warnings.warn(
+                f"The water level is either very low or high compared to the reference water level. "
+                f"No pixels in the objective fit in the area of interest "
+                f"(water level difference: {z - self.gcps['z_0']}).",
+                stacklevel=2,
+            )
+        idx_img = row[idx_ortho].to(torch.int64) * self.width + col[idx_ortho].to(torch.int64)
+        return idx_img, idx_ortho
+
+    def map_mean_idx_img_ortho_tensor(self, x, y, z, device) -> Tuple["torch.Tensor", "torch.Tensor", "torch.Tensor"]:
+        """:meth:`map_mean_idx_img_ortho` as tensor ops on ``device``: (src_idx, uidx, norm_idx), int64.
+
+        The AOI's camera-frame mask is filled on the host
+        (:func:`shapes.fill_polygon`) and uploaded; the source pixels inside
+        it are unprojected in float64 and binned on the device. One sorted
+        ``torch.unique`` with inverse and counts gives what the host's two
+        ``np.unique`` and ``np.isin`` give: the oversampled cells in
+        ascending order, and each selected pixel's rank among them.
+        """
+        import torch
+
+        from .._device import to_device
+
+        poly = self.get_bbox(mode="camera", z_a=z)
+        ring = np.asarray(poly.exterior.coords, dtype=np.float64)
+        ring = ring[np.isfinite(ring).all(axis=1)]
+        mask = shapes.fill_polygon((self.height, self.width), np.round(ring).astype(np.int32))
+        src = torch.nonzero(to_device(mask.reshape(-1), device)).squeeze(1)
+        if src.numel() == 0:
+            empty = torch.zeros(0, dtype=torch.int64, device=device)
+            return empty, empty, empty
+        dst = cam.unproject_to_plane_tensor(
+            torch.stack([src % self.width, src // self.width], dim=-1), z,
+            np.array(self.rvec, dtype=np.float64), np.array(self.tvec, dtype=np.float64),
+            np.asarray(self.camera_matrix, dtype=np.float64),
+            np.asarray(self.dist_coeffs, dtype=np.float64) if self.dist_coeffs is not None else None,
+        )
+        idx_y, idx_x = aff.map_to_pixel_tensor(dst[:, 0], dst[:, 1], self.transform)
+        inside = (idx_y >= 0) & (idx_y < len(y)) & (idx_x >= 0) & (idx_x < len(x))
+        idx = idx_y[inside].to(torch.int64) * len(x) + idx_x[inside].to(torch.int64)
+        uidx, inverse, counts = torch.unique(idx, sorted=True, return_inverse=True, return_counts=True)
+        valid = counts > 1
+        sel = valid[inverse]
+        rank = torch.cumsum(valid, dim=0) - 1
+        return src[inside][sel], uidx[valid], rank[inverse[sel]]
+
     # -- serialization ------------------------------------------------------------------
 
     # -- plotting (reference cameraconfig.py:1297-1599) ------------------------------

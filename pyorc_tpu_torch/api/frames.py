@@ -320,7 +320,9 @@ class Frames(ORCBase):
                 dtype=src_dtype,
             )
         else:
-            out = np.nan_to_num(self._map_device(project_chunk, "project", batch=32)).astype(src_dtype)
+            # the mapped stack is a fresh array: clean and cast it in place (whole-stack copies cost seconds at 4K)
+            out = np.nan_to_num(self._map_device(project_chunk, "project", batch=32), copy=False)
+            out = out.astype(src_dtype, copy=False)
         da_proj = ndx.DataArray(
             out,
             dims=("time", "y", "x", "rgb") if is_rgb else ("time", "y", "x"),

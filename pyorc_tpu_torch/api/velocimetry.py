@@ -20,6 +20,28 @@ from .orcbase import ORCBase
 __all__ = ["Velocimetry"]
 
 
+def _window_effective(ds, cells, tolerance, **window) -> ndx.Dataset:
+    """``get_transect``'s windowed field: at ``cells`` ({"y": rows, "x": cols}) the median over
+    :func:`helpers.stack_window`'s strides (``window``), where more than ``tolerance`` of the strides
+    have a valid time mean; NaN at every other cell of the grid.
+
+    The reference computes it on the whole stacked field; each cell's value
+    depends only on its own strides, so at ``cells`` it is the same.
+    """
+    ds_wdw = helpers.stack_window_cells(ds, cells, **window)
+    missing_tolerance = ds_wdw.mean(dim="time").count(dim="stride") > tolerance * ds_wdw.sizes["stride"]
+    effective = ds_wdw.median(dim="stride").where(missing_tolerance)
+
+    def grid(v):
+        values = effective[v.name].values  # [other dims, cell]
+        lead = tuple(n for d, n in zip(v.dims, v.shape) if d not in ("y", "x"))
+        field = np.full(lead + (v.sizes["y"], v.sizes["x"]), np.nan, dtype=values.dtype)
+        field[..., cells["y"], cells["x"]] = values
+        return v._replace(np.moveaxis(field, (-2, -1), (v.dims.index("y"), v.dims.index("x"))))
+
+    return ds._map(grid)
+
+
 @ndx.register_dataset_accessor("velocimetry")
 class Velocimetry(ORCBase):
     """Velocimetry functionality on a Dataset from Frames.get_piv."""
@@ -118,12 +140,11 @@ class Velocimetry(ORCBase):
             # nearest-neighbour sampling
             ds_points = ds.interp(x=_x, y=_y)  # linear is fine at window centres
         else:
-            ds_wdw = helpers.stack_window(
-                ds, wdw=wdw, wdw_x_min=wdw_x_min, wdw_x_max=wdw_x_max, wdw_y_min=wdw_y_min, wdw_y_max=wdw_y_max
+            # the window median on the cells the sample points' stencils read: interp reads no other
+            ds_effective = _window_effective(
+                ds, ds["v_x"].interp_cells(x=_x, y=_y), tolerance,
+                wdw=wdw, wdw_x_min=wdw_x_min, wdw_x_max=wdw_x_max, wdw_y_min=wdw_y_min, wdw_y_max=wdw_y_max,
             )
-            missing_tolerance = ds_wdw.mean(dim="time").count(dim="stride") > tolerance * ds_wdw.sizes["stride"]
-            ds_effective = ds_wdw.median(dim="stride")
-            ds_effective = ds_effective.where(missing_tolerance)
             ds_points = ds_effective.interp(x=_x, y=_y)
         if bool(np.isnan(ds_points["v_x"].mean(dim="time").values).all()):
             warnings.warn(

@@ -14,6 +14,10 @@ relies on, matching the reference's numerics exactly:
   int64 rounding, returning (rows, cols).
 - ``affine_from_grid`` (reference ``pyorc/helpers.py:36-60``): origin at the
   first cell centre.
+
+``pixel_to_map_tensor`` and ``map_to_pixel_tensor`` are the same expressions
+on float64 tensors (the ortho index maps built on the device), term for term
+in the host functions' order, so they round as the host functions do.
 """
 
 from __future__ import annotations
@@ -21,8 +25,12 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["Affine", "affine_from_grid", "pixel_to_map", "map_to_pixel", "map_to_pixel_float"]
+__all__ = [
+    "Affine", "affine_from_grid", "pixel_to_map", "map_to_pixel", "map_to_pixel_float",
+    "pixel_to_map_tensor", "map_to_pixel_tensor",
+]
 
 
 class Affine:
@@ -105,6 +113,32 @@ def map_to_pixel(xs, ys, transform) -> Tuple[np.ndarray, np.ndarray]:
     dy = np.asarray(ys, dtype=np.float64) - t[5]
     row = np.int64(np.round(inv[0] * dx + inv[1] * dy))
     col = np.int64(np.round(inv[2] * dx + inv[3] * dy))
+    return row, col
+
+
+def pixel_to_map_tensor(cols: torch.Tensor, rows: torch.Tensor, transform) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pixel_to_map` on tensors: float64 on their device, bit for bit the host's values."""
+    cols = cols.to(torch.float64)
+    rows = rows.to(torch.float64)
+    t = tuple(float(e) for e in transform)
+    x_map = t[2] + rows * t[1] + cols * t[0]
+    y_map = t[5] + rows * t[4] + cols * t[3]
+    return x_map, y_map
+
+
+def map_to_pixel_tensor(xs: torch.Tensor, ys: torch.Tensor, transform) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`map_to_pixel` on float64 tensors: (rows, cols) rounded half to even, as float64.
+
+    The host casts to int64, where NaN (and anything out of int64's range)
+    becomes int64's minimum; these stay float, so NaN stays NaN and a caller
+    tests bounds on the floats before it casts.
+    """
+    t = tuple(float(e) for e in transform)
+    inv = _inverse_2x2(t)
+    dx = xs.to(torch.float64) - t[2]
+    dy = ys.to(torch.float64) - t[5]
+    row = torch.round(inv[0] * dx + inv[1] * dy)
+    col = torch.round(inv[2] * dx + inv[3] * dy)
     return row, col
 
 

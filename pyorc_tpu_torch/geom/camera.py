@@ -9,6 +9,18 @@ unproject_points, ``:1472-1507`` undistort_points, ``:769-831`` homographies).
 Everything is float64 numpy on the host — poses and sampling grids are
 computed once per video, then consumed by the device kernels.
 
+The ``*_tensor`` functions are the per-point functions on float64 tensors on
+their device (the ortho index maps are built on the card), bit for bit the
+host's values: each expression is written in the host function's evaluation
+order. numpy's ``@`` of an (N, 3) by a 3x3 array runs through BLAS, which on
+FMA hardware rounds each dot product as a chain of fused multiply-adds over
+k = 0, 1, 2; the twins give that chain's rounding with plain float64
+operations (:func:`_fma`), never a matmul or a fused op of their own.
+Rotations, ``K`` and homographies are still made on the host and enter as
+Python floats. A tensor is divided only by a tensor on its own device: CUDA
+divides by a Python scalar as a multiply by its reciprocal, which may round
+differently from the host's division.
+
 Conventions (OpenCV-compatible so reference camera-config JSONs load
 unchanged):
 - pixel coordinates are (x=column, y=row)
@@ -18,9 +30,11 @@ unchanged):
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "rodrigues",
@@ -44,6 +58,12 @@ __all__ = [
     "camera_position",
     "world_to_camera",
     "pose_world_to_camera",
+    "distort_normalized_tensor",
+    "undistort_normalized_tensor",
+    "project_points_tensor",
+    "undistort_points_tensor",
+    "perspective_transform_tensor",
+    "unproject_to_plane_tensor",
 ]
 
 
@@ -259,6 +279,154 @@ def unproject_to_plane(points, z, rvec, tvec, camera_matrix, dist_coeffs=None) -
     lam = (zs - c_world[2]) / d_world[:, 2]
     out = c_world[None, :] + lam[:, None] * d_world
     return out
+
+
+# ----------------------------------------------------------------------------------
+# Tensor twins (float64, the host functions' evaluation order)
+# ----------------------------------------------------------------------------------
+
+
+def _floats(a) -> list:
+    return [float(v) for v in np.asarray(a, dtype=np.float64).ravel()]
+
+
+_SPLIT = 134217729.0  # 2**27 + 1, Veltkamp's constant: splits a float64 into two 26-bit halves
+
+
+def _split(a):
+    t = a * _SPLIT
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_sum(a, b):
+    """(s, t) with s = a + b rounded and s + t = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma(a, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, as a fused multiply-add rounds it, from plain float64 operations.
+
+    Boldo and Melquiond's emulated FMA: the product exactly as ``p + e``
+    (Dekker), ``c + p`` exactly as ``s + t``, ``t + e`` rounded to odd, then
+    one rounding of ``s`` plus that. Exact for finite values whose product
+    neither overflows nor underflows.
+    """
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s, t = _two_sum(c, p)
+    v, w = _two_sum(t, e)
+    even = (v.view(torch.int64) & 1) == 0
+    v = torch.where((w != 0) & even, torch.nextafter(v, torch.full_like(v, math.inf).copysign(w)), v)
+    return s + v
+
+
+def _dot3(x, y, z, r) -> torch.Tensor:
+    """``x r[0] + y r[1] + z r[2]`` rounded as BLAS's FMA chain rounds one term of numpy's ``@``."""
+    return _fma(z, r[2], _fma(y, r[1], x * r[0]))
+
+
+def _over(num: torch.Tensor, den: float) -> torch.Tensor:
+    """``num / den`` as a true division on the card (see the module docstring)."""
+    return num / torch.tensor(den, dtype=torch.float64, device=num.device)
+
+
+def _distort_xy(x, y, d):
+    k1, k2, p1, p2, k3, k4, k5, k6 = d
+    r2 = x * x + y * y
+    r4 = r2 * r2
+    r6 = r4 * r2
+    radial = (1 + k1 * r2 + k2 * r4 + k3 * r6) / (1 + k4 * r2 + k5 * r4 + k6 * r6)
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return xd, yd
+
+
+def _undistort_xy(xd, yd, d, iterations):
+    k1, k2, p1, p2, k3, k4, k5, k6 = d
+    x, y = xd, yd
+    for _ in range(iterations):
+        r2 = x * x + y * y
+        r4 = r2 * r2
+        r6 = r4 * r2
+        radial = (1 + k1 * r2 + k2 * r4 + k3 * r6) / (1 + k4 * r2 + k5 * r4 + k6 * r6)
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return x, y
+
+
+def _undistort_pixels_xy(u, v, camera_matrix, dist_coeffs, P="same"):
+    K = np.asarray(camera_matrix, dtype=np.float64)
+    xn = _over(u - float(K[0, 2]), float(K[0, 0]))
+    yn = _over(v - float(K[1, 2]), float(K[1, 1]))
+    x, y = _undistort_xy(xn, yn, _floats(_dist8(dist_coeffs)), 5)
+    if P is None:
+        return x, y
+    Pm = K if (isinstance(P, str) and P == "same") else np.asarray(P, dtype=np.float64)
+    return float(Pm[0, 0]) * x + float(Pm[0, 2]), float(Pm[1, 1]) * y + float(Pm[1, 2])
+
+
+def _homography_xy(x, y, M):
+    m = np.asarray(M, dtype=np.float64)
+    h = [_dot3(x, y, 1.0, _floats(m[i])) for i in range(3)]
+    return h[0] / h[2], h[1] / h[2]
+
+
+def distort_normalized_tensor(pts: torch.Tensor, dist_coeffs) -> torch.Tensor:
+    """:func:`distort_normalized` on a float64 tensor [..., 2]."""
+    pts = pts.to(torch.float64)
+    return torch.stack(_distort_xy(pts[..., 0], pts[..., 1], _floats(_dist8(dist_coeffs))), dim=-1)
+
+
+def undistort_normalized_tensor(pts: torch.Tensor, dist_coeffs, iterations: int = 5) -> torch.Tensor:
+    """:func:`undistort_normalized` on a float64 tensor [..., 2]."""
+    pts = pts.to(torch.float64)
+    return torch.stack(_undistort_xy(pts[..., 0], pts[..., 1], _floats(_dist8(dist_coeffs)), iterations), dim=-1)
+
+
+def project_points_tensor(points: torch.Tensor, rvec, tvec, camera_matrix, dist_coeffs=None) -> torch.Tensor:
+    """:func:`project_points` on a float64 tensor [N, 3] -> [N, 2]."""
+    pts = points.to(torch.float64).reshape(-1, 3)
+    R = rodrigues(rvec)
+    t = _floats(tvec)
+    X, Y, Z = pts[:, 0], pts[:, 1], pts[:, 2]
+    pc = [_dot3(X, Y, Z, _floats(R[i])) + t[i] for i in range(3)]
+    xd, yd = _distort_xy(pc[0] / pc[2], pc[1] / pc[2], _floats(_dist8(dist_coeffs)))
+    K = np.asarray(camera_matrix, dtype=np.float64)
+    u = float(K[0, 0]) * xd + float(K[0, 1]) * yd + float(K[0, 2])
+    v = float(K[1, 1]) * yd + float(K[1, 2])
+    return torch.stack([u, v], dim=-1)
+
+
+def undistort_points_tensor(points: torch.Tensor, camera_matrix, dist_coeffs, P: Optional[np.ndarray] = "same") -> torch.Tensor:
+    """:func:`undistort_points` on a float64 tensor [N, 2]."""
+    pts = points.to(torch.float64).reshape(-1, 2)
+    return torch.stack(_undistort_pixels_xy(pts[:, 0], pts[:, 1], camera_matrix, dist_coeffs, P), dim=-1)
+
+
+def perspective_transform_tensor(points: torch.Tensor, M) -> torch.Tensor:
+    """:func:`perspective_transform` on a float64 tensor [N, 2]."""
+    pts = points.to(torch.float64).reshape(-1, 2)
+    return torch.stack(_homography_xy(pts[:, 0], pts[:, 1], M), dim=-1)
+
+
+def unproject_to_plane_tensor(points: torch.Tensor, z: float, rvec, tvec, camera_matrix, dist_coeffs=None) -> torch.Tensor:
+    """:func:`unproject_to_plane` on a float64 tensor [N, 2] at one plane elevation ``z`` -> [N, 3].
+
+    The host's constant-z branch: undistort, then the plane homography made
+    on the host by :func:`homography_from_pose`.
+    """
+    pts = points.to(torch.float64).reshape(-1, 2)
+    u, v = _undistort_pixels_xy(pts[:, 0], pts[:, 1], camera_matrix, dist_coeffs)
+    M = homography_from_pose(rvec, tvec, np.asarray(camera_matrix, dtype=np.float64), z=float(z), reverse=False)
+    x, y = _homography_xy(u, v, M)
+    return torch.stack([x, y, torch.full_like(x, float(z))], dim=-1)
 
 
 def camera_position(rvec, tvec) -> np.ndarray:

@@ -14,6 +14,7 @@ __all__ = [
     "get_lons_lats",
     "deserialize_attr",
     "stack_window",
+    "stack_window_cells",
     "xy_equidistant",
     "xy_angle",
     "rotate_u_v",
@@ -40,6 +41,48 @@ def stack_window(ds, wdw=1, wdw_x_min=None, wdw_x_max=None, wdw_y_min=None, wdw_
             for y_stride in range(wdw_y_min, wdw_y_max)
         ],
         dim=dim,
+    )
+
+
+def stack_window_cells(ds, cells, wdw=1, wdw_x_min=None, wdw_x_max=None, wdw_y_min=None, wdw_y_max=None):
+    """:func:`stack_window` read at the grid cells ``cells`` only.
+
+    ``cells`` maps "y" and "x" to the cells' row and column indices (as
+    ``DataArray.interp_cells`` gives them). Each variable's y and x dims
+    become one dim "cell" in the order of ``cells``; stride ``(sx, sy)``
+    reads cell ``(iy - sy, ix - sx)``, NaN where that leaves the grid, and
+    the strides come in :func:`stack_window`'s order (its exclusive y range
+    included) along "stride", with ``shift``'s dtypes, so a reduction over it gives
+    each cell the value it has in the whole stacked field.
+    """
+    from . import ndx
+
+    wdw_x_min = -wdw if wdw_x_min is None else wdw_x_min
+    wdw_x_max = wdw if wdw_x_max is None else wdw_x_max
+    wdw_y_min = -wdw if wdw_y_min is None else wdw_y_min
+    wdw_y_max = wdw if wdw_y_max is None else wdw_y_max
+    iy = np.asarray(cells["y"], dtype=np.int64)
+    ix = np.asarray(cells["x"], dtype=np.int64)
+
+    def shifted(v, x_stride, y_stride):
+        data = np.moveaxis(v.values, (v.dims.index("y"), v.dims.index("x")), (-2, -1))
+        ny, nx = data.shape[-2:]
+        sy, sx = iy - y_stride, ix - x_stride
+        out = data[..., np.clip(sy, 0, ny - 1), np.clip(sx, 0, nx - 1)]
+        if x_stride or y_stride:
+            if not ndx._is_float(out.dtype):
+                out = out.astype(np.float64)
+            out[..., (sy < 0) | (sy >= ny) | (sx < 0) | (sx >= nx)] = np.nan
+        dims = tuple(d for d in v.dims if d not in ("y", "x")) + ("cell",)
+        return ndx.DataArray(out, dims=dims, name=v.name, attrs=dict(v.attrs))
+
+    return ndx.concat(
+        [
+            ndx.Dataset({k: shifted(v, x_stride, y_stride) for k, v in ds.data_vars.items()}, attrs=dict(ds.attrs))
+            for x_stride in range(wdw_x_min, wdw_x_max + 1)
+            for y_stride in range(wdw_y_min, wdw_y_max)
+        ],
+        dim="stride",
     )
 
 

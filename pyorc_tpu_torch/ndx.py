@@ -678,18 +678,7 @@ class DataArray(_AccessorMixin):
         # move sample dims to the back
         other = [d for d in self._dims if d not in sample_dims]
         arr = np.transpose(vals, [self._dims.index(d) for d in other + sample_dims])
-        frac = []
-        for d in sample_dims:
-            coord = self.get_index(d).astype(np.float64)
-            t = np.asarray(targets[d].values, dtype=np.float64).ravel()
-            # fractional index; np.interp needs ascending support points
-            if len(coord) > 1 and coord[1] < coord[0]:
-                fi = np.interp(t, coord[::-1], np.arange(len(coord))[::-1].astype(np.float64))
-            else:
-                fi = np.interp(t, coord, np.arange(len(coord), dtype=np.float64))
-            lo = (t < coord.min()) | (t > coord.max())
-            fi[lo] = np.nan
-            frac.append(fi)
+        frac = self._fractional_indices(targets)
         out = _multilinear(arr, frac)  # shape other_dims + (npts,)
         out_shape = [self.sizes[d] for d in other] + list(out_tpl.shape)
         out = out.reshape(out_shape)
@@ -705,6 +694,41 @@ class DataArray(_AccessorMixin):
             if k not in self._dims or True:
                 new._coords[k] = DataArray(np.asarray(t.values), dims=t.dims, name=k, fastpath=True)
         return new
+
+    def _fractional_indices(self, targets) -> list:
+        """Per target dim, in ``targets``' order: the fractional index of each
+        target along that dim's index (NaN outside its range)."""
+        frac = []
+        for d, tgt in targets.items():
+            coord = self.get_index(d).astype(np.float64)
+            t = np.asarray(tgt.values, dtype=np.float64).ravel()
+            # fractional index; np.interp needs ascending support points
+            if len(coord) > 1 and coord[1] < coord[0]:
+                fi = np.interp(t, coord[::-1], np.arange(len(coord))[::-1].astype(np.float64))
+            else:
+                fi = np.interp(t, coord, np.arange(len(coord), dtype=np.float64))
+            lo = (t < coord.min()) | (t > coord.max())
+            fi[lo] = np.nan
+            frac.append(fi)
+        return frac
+
+    def interp_cells(self, **targets) -> Dict[str, np.ndarray]:
+        """The grid cells pointwise ``interp(**targets)`` reads: per target dim,
+        the index of each cell, every cell once (ascending flat order).
+
+        Every corner of every point with finite indices counts, a corner of
+        weight 0 too (its value is multiplied by 0, and a NaN there propagates);
+        a point outside the grid reads no cell (its result is NaN).
+        """
+        sizes = [self.sizes[d] for d in targets]
+        i0s, _, valid = _stencil(self._fractional_indices(targets), sizes)
+        flat = [
+            np.ravel_multi_index(
+                tuple(_corner(i0[valid], (corner >> k) & 1, n) for k, (i0, n) in enumerate(zip(i0s, sizes))), sizes
+            )
+            for corner in range(2 ** len(sizes))
+        ]
+        return dict(zip(targets, np.unravel_index(np.unique(np.concatenate(flat)), sizes)))
 
     def interpolate_na(self, dim, method="linear", fill_value=None) -> "DataArray":
         coord = self.get_index(dim).astype(np.float64)
@@ -887,27 +911,39 @@ def _take_arr(arr, idx: np.ndarray, axis: int):
     return xp.take(arr, idx, axis=axis)
 
 
+def _stencil(frac: Sequence[np.ndarray], sizes: Sequence[int]):
+    """The multi-linear stencil of points at fractional indices ``frac`` on a grid of ``sizes``: per axis the
+    lower corner ``clip(floor(f), 0, n - 2)`` and the upper corner's weight, and which points have every index
+    finite (the others are computed at index 0 and come out NaN)."""
+    npts = len(frac[0])
+    i0s, ws, valid = [], [], np.ones(npts, dtype=bool)
+    for f, n in zip(frac, sizes):
+        valid &= np.isfinite(f)
+        fi = np.where(np.isfinite(f), f, 0.0)
+        i0 = np.clip(np.floor(fi).astype(int), 0, n - 2) if n > 1 else np.zeros(npts, int)
+        i0s.append(i0)
+        ws.append(fi - i0)
+    return i0s, ws, valid
+
+
+def _corner(i0: np.ndarray, bit: int, n: int) -> np.ndarray:
+    """The index of a stencil's lower (bit 0) or upper (bit 1) corner along an axis of ``n`` cells."""
+    return np.minimum(i0 + bit, n - 1)
+
+
 def _multilinear(arr: np.ndarray, frac: Sequence[np.ndarray]) -> np.ndarray:
     """Multi-linear interpolation of `arr`'s last len(frac) axes at fractional indices."""
     nd = len(frac)
     npts = len(frac[0])
     out = np.zeros(arr.shape[: arr.ndim - nd] + (npts,), dtype=np.float64)
-    i0s, ws, valid = [], [], np.ones(npts, dtype=bool)
-    for k, f in enumerate(frac):
-        n = arr.shape[arr.ndim - nd + k]
-        valid &= np.isfinite(f)
-        fi = np.where(np.isfinite(f), f, 0.0)
-        i0 = np.clip(np.floor(fi).astype(int), 0, n - 2) if n > 1 else np.zeros(npts, int)
-        w = fi - i0
-        i0s.append(i0)
-        ws.append(w)
+    i0s, ws, valid = _stencil(frac, arr.shape[arr.ndim - nd:])
     for corner in range(2**nd):
         weight = np.ones(npts)
         idx = []
         for k in range(nd):
             bit = (corner >> k) & 1
             n = arr.shape[arr.ndim - nd + k]
-            ik = np.minimum(i0s[k] + bit, n - 1)
+            ik = _corner(i0s[k], bit, n)
             idx.append(ik)
             weight = weight * (ws[k] if bit else (1 - ws[k]))
         gathered = arr[(...,) + tuple(idx)]

@@ -1,9 +1,11 @@
 """Orthorectification: per-frame projective remap as PyTorch gathers.
 
 Port of :mod:`pyorc_tpu.ops.ortho`. The index maps (world grid <-> image
-pixels, computed once per video and water level on the host by
-``CameraConfig.map_idx_img_ortho`` / ``map_mean_idx_img_ortho``) are host
-numpy, copied from the JAX package. The remap of a frame batch is ONE
+pixels, computed once per video and water level) are built where the port
+computes: on the CPU device by the host numpy copied from the JAX package
+(``CameraConfig.map_idx_img_ortho`` / ``map_mean_idx_img_ortho``), on a card
+by their float64 tensor twins (``*_tensor``), equal element for element;
+either way they come back as host numpy. The remap of a frame batch is ONE
 gather from a padded source ``[frame pixels | zero sentinel | group means]``
 indexed by ``full_idx``; the means of oversampled cells are an
 ``index_add_`` group sum in float32, cast to the source dtype. Axis-aligned
@@ -17,11 +19,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import get_device, to_device, to_host
 
 __all__ = [
     "OrthoMaps",
     "build_ortho_maps",
+    "build_ortho_maps_tensor",
     "project_batch",
     "source_bbox",
     "crop_maps",
@@ -48,8 +51,16 @@ class OrthoMaps(NamedTuple):
     col_idx: Optional[np.ndarray] = None  # [cols] source col per output col
 
 
-def build_ortho_maps(camera_config, x, y, z, reducer: str = "mean") -> OrthoMaps:
-    """Precompute index maps on the host (once per video / water level)."""
+def build_ortho_maps(camera_config, x, y, z, reducer: str = "mean", device=None) -> OrthoMaps:
+    """Precompute the index maps (once per video / water level) on ``device`` (default :func:`get_device`).
+
+    On the CPU device the host numpy below runs (the plain version); on any
+    other device :func:`build_ortho_maps_tensor` builds them there. A CUDA
+    device without CUDA raises: the maps never fall back to the host.
+    """
+    device = get_device() if device is None else torch.device(device)
+    if device.type != "cpu":
+        return build_ortho_maps_tensor(camera_config, x, y, z, reducer, device)
     idx_img, idx_ortho = camera_config.map_idx_img_ortho(x, y, z)
     ortho_pos = np.where(idx_ortho)[0]
     h, w = camera_config.height, camera_config.width
@@ -89,6 +100,55 @@ def build_ortho_maps(camera_config, x, y, z, reducer: str = "mean") -> OrthoMaps
         shape_out=(ny, nx),
         row_idx=row_idx,
         col_idx=col_idx,
+    )
+
+
+def build_ortho_maps_tensor(camera_config, x, y, z, reducer: str = "mean", device=None) -> OrthoMaps:
+    """:func:`build_ortho_maps` as tensor ops on ``device``: the same :class:`OrthoMaps`, element for element.
+
+    The projection and unprojection of every cell and source pixel, the
+    group counts, the sentinel and mean-block entries of ``full_idx`` and the
+    separable-path test all run on the device; the maps come down once, as
+    the host path's dtypes. Runs on CPU tensors too (how the tests hold it to
+    the host path).
+    """
+    device = get_device() if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"build_ortho_maps on {device}: torch.cuda.is_available() is False")
+    idx_img, idx_ortho = camera_config.map_idx_img_ortho_tensor(x, y, z, device)
+    h, w = camera_config.height, camera_config.width
+    n_src = h * w
+    ny, nx = len(y), len(x)
+    full_idx = torch.full((ny * nx,), n_src, dtype=torch.int64, device=device)
+    full_idx[idx_ortho] = idx_img
+    src_idx = uidx = norm_idx = counts = None
+    if reducer == "mean":
+        src_idx, uidx, norm_idx = camera_config.map_mean_idx_img_ortho_tensor(x, y, z, device)
+    if src_idx is not None and uidx.numel():
+        counts = torch.bincount(norm_idx, minlength=uidx.numel()).to(torch.float32)
+        full_idx[uidx] = n_src + 1 + torch.arange(uidx.numel(), dtype=torch.int64, device=device)
+    else:
+        src_idx = norm_idx = None
+    row_idx = col_idx = None
+    if src_idx is None and bool((full_idx != n_src).all()):
+        fi2 = full_idx.reshape(ny, nx)
+        rr = fi2 // w
+        cc = fi2 % w
+        if bool((rr == rr[:, :1]).all()) and bool((cc == cc[:1, :]).all()):
+            row_idx, col_idx = rr[:, 0], cc[0, :]
+
+    def down(a, dtype=torch.int32):
+        return None if a is None else to_host(a.to(dtype))
+
+    return OrthoMaps(
+        full_idx=down(full_idx),
+        src_idx=down(src_idx),
+        norm_idx=down(norm_idx),
+        counts=down(counts, torch.float32),
+        shape_in=(h, w),
+        shape_out=(ny, nx),
+        row_idx=down(row_idx),
+        col_idx=down(col_idx),
     )
 
 
