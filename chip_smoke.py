@@ -104,7 +104,8 @@
    cmax and s2n bitwise and counts equal to the unsharded kernel's,
    ``corr_sum`` within 1e-6 relative, the mean-plane displacements within
    1e-3 px of step 12's, one launch a shard; (d) ``piv_multipass_sharded``
-   (32 px, ``passes=3``) equal to step 6's fields within 1e-5 px; (e)
+   (32 px, ``passes=3``) equal to step 6's fields within 1e-5 px, the
+   deformation kernel launched twice a shard; (e)
    ``piv_pairs_sharded_2d`` on a (2, 2) mesh at 32 px on the first 9 frames
    bit for bit the unsharded kernel's; (f) ``get_piv`` with the engine's mesh
    handed those shards (``_device.local_devices`` patched in this script
@@ -125,11 +126,22 @@
    window sizes 32 (128 -> 64 -> 32 px) and 25 (104 -> 52 -> 26 px) -> mask
    -> get_transect -> get_q -> get_river_flow, checked against the analytic
    velocity and discharge; the per-pair kernel's launches are counted, and
-   must be a whole number of launches per pass.
+   must be a whole number of launches per pass, and the deformation
+   kernel's (``csrc/deform.cu``) must be ``passes - 1`` per chunk, on route
+   "cuda". Then get_piv(passes=3) at window 32 in chunks of 64 frames (two
+   chunks): every field equal to the one-chunk slice's bit for bit, the
+   deformation launched twice a chunk.
 7. Multipass main-path check: each cascade on that stack once with the
-   kernel and once with ``piv_pairs_fused`` swapped for its plain version
-   (in this script only), held to each other and to the slice's velocities;
-   each pass's kernel and plain version are timed beside the bound.
+   kernels and once with ``piv_pairs_fused`` and ``multipass.deformed_pairs``
+   swapped for their plain versions (in this script only), held to each other
+   and to the slice's velocities; each pass's kernel and plain version are
+   timed beside the bound. Each deformed pass of the kernel run is deformed
+   again from its recorded inputs by the kernel and by the plain version:
+   the pairs must be equal bit for bit; the kernel (CUDA events), the plain
+   version and, as a yardstick the port never calls, two
+   ``torch.nn.functional.grid_sample`` calls on the plain version's sample
+   coordinates ("sampling only") are timed beside the bound
+   (``roofline.deform_bound``).
 8. Non-square slice: the same projected stack through get_piv with 64x128 px
    windows at overlap (32, 64) -> mask -> get_transect -> get_q ->
    get_river_flow, held to the analytic velocity (0.02 m/s) and discharge;
@@ -188,7 +200,8 @@
    card) equal to ``read_batch(...)`` downloaded. Each time is a median in ms
    beside ``SURFACE_PREDICTED_MS``, on a line with the card's name and power
    limit.
-17. Prints one JSON line about the kernels, then the last line
+17. Prints one JSON line about the kernels (per pair, ensemble, and the
+   multipass deformation, which replaces no Pallas kernel), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each PIV slice runs with every launch count at 0 and must launch its kernel;
@@ -205,7 +218,8 @@ stops after steps 1-3 (to compare two trees' kernels on one card).
 instead runs the five slices (per-pair, multipass, non-square, ensemble,
 wide ensemble), both lazy chains and the filters and STIV phases once under
 ``torch.profiler`` (all host threads) and prints, per stage, the wall time,
-the device's busy time (kernels and copies), its idle share and the bytes
+the device's busy time (kernels and copies; of it the copies, the
+correlation kernels and the deformation kernel), its idle share and the bytes
 moved each way, and the host time of the lazy chains' spans (``lazy:decode``,
 ``lazy:upload`` and one per op); the raw numbers go to
 ``build/profile_slice.json``.
@@ -609,8 +623,9 @@ def multipass_phase(proj, h, w):
     mask -> get_transect -> get_q -> get_river_flow, held to the analytic
     truth within VEL_TOL[26] and Q_TOL.
 
-    Returns (per-configuration results with the per-pair kernel's launches,
-    stage times, PIV datasets before masking), keyed by the last window [px].
+    Returns (per-configuration results with the per-pair and the deformation
+    kernels' launches and the deformation's route, stage times, PIV datasets
+    before masking), keyed by the last window [px].
     """
     from pyorc_tpu_torch.ops import piv_kernels
 
@@ -618,12 +633,45 @@ def multipass_phase(proj, h, w):
     times, results, pivs = {}, {}, {}
     for ws, passes in MULTIPASS:
         w_px = ws + ws % 2
-        before = piv_kernels.LAUNCHES["piv_pairs"]
+        before = dict(piv_kernels.LAUNCHES)
         pivs[w_px], q = run_chain(proj, ws, cc, times, f"[{w_px}px x{passes}]", passes=passes)
         results[w_px] = check_chain(pivs[w_px], q, cc, w_px, abs_tol=VEL_TOL[26])
-        results[w_px]["launches"] = piv_kernels.LAUNCHES["piv_pairs"] - before
+        results[w_px]["launches"] = piv_kernels.LAUNCHES["piv_pairs"] - before["piv_pairs"]
+        results[w_px]["deform_launches"] = piv_kernels.LAUNCHES["deform_pairs"] - before["deform_pairs"]
+        results[w_px]["deform_route"] = piv_kernels.KERNEL_ROUTE.get("deform_pairs")
         results[w_px]["passes"] = passes
     return results, times, pivs
+
+
+def check_deform_launches(label, deform_launches, pairs_launches, passes, route):
+    """Raise unless a multipass run launched the deformation kernel ``passes - 1`` times for each call
+    of the cascade (each chunk or shard: ``pairs_launches / passes``, one correlation a pass), on route
+    "cuda"; returns the number of calls."""
+    calls, rest = divmod(pairs_launches, passes)
+    if calls < 1 or rest or deform_launches != (passes - 1) * calls or route != "cuda":
+        raise AssertionError(f"{label}: {deform_launches} deformation launches (route {route}) for {calls} "
+                             f"calls of {passes} passes ({pairs_launches} correlation launches)")
+    return calls
+
+
+MULTIPASS_CHUNKS = 64  # frames a chunk of the multipass engine check: the 126-frame stack in two chunks
+
+
+def multipass_chunks_check(proj, piv, window_size=32, passes=3, chunksize=MULTIPASS_CHUNKS):
+    """``get_piv(passes=3)`` on the slice's projected stack in chunks of ``chunksize`` frames: every field
+    equal to the slice's one-chunk dataset ``piv`` bit for bit (every pass is per pair); returns the
+    per-pair and deformation kernels' launches and the deformation's route."""
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    got, n_pairs = _launched("piv_pairs", lambda: proj.frames.get_piv(
+        window_size=window_size, overlap=(window_size // 2, window_size // 2), passes=passes, chunksize=chunksize))
+    out = {"chunksize": chunksize, "launches": n_pairs, "deform_launches": piv_kernels.LAUNCHES["deform_pairs"],
+           "deform_route": piv_kernels.KERNEL_ROUTE.get("deform_pairs")}
+    for name in ("v_x", "v_y", "corr", "s2n"):
+        if not np.array_equal(got[name].values, piv[name].values, equal_nan=True):
+            raise AssertionError(f"multipass {window_size} px x{passes}, chunksize {chunksize}: {name} differs "
+                                 "from one chunk")
+    return out
 
 
 def non_square_phase(proj, h, w):
@@ -2184,18 +2232,24 @@ def benchmarks_phase(folder):
 
 
 def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=5):
-    """The multipass cascade on the stack the slice gave it, with the kernel and with its plain version.
+    """The multipass cascade on the stack the slice gave it, with the kernels and with their plain versions.
 
     Runs :func:`pyorc_tpu_torch.ops.multipass.piv_multipass` over the whole
     projected stack twice: once as the engine runs it, once with
-    ``piv_kernels.piv_pairs_fused`` swapped for the plain version (here
-    only, with ``unittest.mock.patch``). Every pass of the first run must
-    take the CUDA kernel. The last pass's outputs of the two runs are held to
-    each other as :func:`hold_pairs` requires (the gap from the plain run's
-    last deformed pairs), and the slice's unmasked v_x / v_y to the first
-    run's displacements times RES / dt. On the card each pass's kernel and
-    plain version are timed on that pass's interleaved deformed pairs
-    (median of ``reps``), beside the bound. Returns the errors and a row per pass.
+    ``piv_kernels.piv_pairs_fused`` and ``multipass.deformed_pairs`` swapped
+    for their plain versions (here only, with ``unittest.mock.patch``). On the
+    card every pass of the first run must take the per-pair CUDA kernel and
+    every pass after the first the deformation kernel, one launch each. The
+    last pass's outputs of the two runs are held to each other as
+    :func:`hold_pairs` requires (the gap from the plain run's last deformed
+    pairs), and the slice's unmasked v_x / v_y to the first run's
+    displacements times RES / dt. Each deformed pass of the first run is
+    deformed again from its recorded inputs by the kernel and by the plain
+    version: the pairs must be equal bit for bit. On the card each pass's
+    correlation kernel and plain version are timed on that pass's interleaved
+    deformed pairs (median of ``reps``), beside the bound; each deformation
+    too (:func:`deform_check`). Returns the errors, a row per pass and a row
+    per deformed pass.
     """
     from unittest import mock
 
@@ -2206,8 +2260,8 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
     w_px = window_size + window_size % 2
     dims, sas, ov, n_rows, n_cols = _grid(frames.shape[1:], w_px)
-    kernel = piv_kernels.piv_pairs_fused
-    calls = {"kernel": [], "plain": []}
+    kernel, deform = piv_kernels.piv_pairs_fused, multipass.deformed_pairs
+    calls = {"kernel": [], "plain": [], "deform": []}
 
     def recorded(name, fn):
         def run(pairs, *args, **kwargs):
@@ -2216,16 +2270,27 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
             return out
         return run
 
+    def recorded_deform(*args):
+        out = deform(*args)
+        calls["deform"].append((args, piv_kernels.KERNEL_ROUTE.get("deform_pairs")))
+        return out
+
     def plain(pairs, *args, pair_stride=1, frame0=0, halo=(0, 0), n_total=None):  # explicit pairs: no halo
         return _plain_pairs(pairs, args[:5], pair_stride)
 
     label = f"multipass main path {w_px} px x{passes}"
-    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("kernel", kernel)):
+    launches = piv_kernels.LAUNCHES["deform_pairs"]
+    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("kernel", kernel)), \
+            mock.patch.object(multipass, "deformed_pairs", recorded_deform):
         kern = multipass.piv_multipass(frames, dims, sas, ov, n_rows, n_cols, passes=passes)
+    launches = piv_kernels.LAUNCHES["deform_pairs"] - launches
     routes = [route for _, _, route in calls["kernel"]]
     if len(routes) != passes or set(routes) != {"cuda"}:
         raise AssertionError(f"{label}: the passes took {routes}, not the CUDA kernel each")
-    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("plain", plain)):
+    if device != "cpu":
+        check_deform_launches(label, launches, passes, passes, calls["deform"][-1][1])
+    with mock.patch.object(piv_kernels, "piv_pairs_fused", recorded("plain", plain)), \
+            mock.patch.object(multipass, "deformed_pairs", plain_deformed_pairs):
         ref = multipass.piv_multipass(frames, dims, sas, ov, n_rows, n_cols, passes=passes)
     last_pairs, last_args, _ = calls["plain"][-1]
     out = hold_pairs(kern, ref, _pairs_gap(last_pairs, last_args, 2), label)
@@ -2241,8 +2306,92 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
             row["plain_ms"] = _median_ms(lambda: _plain_pairs(pairs, args, 2), 3)
         row["bound_ms"], row["bound_by"] = pairs_bound(pairs, args, 2)
         out["passes"].append(row)
+    out["deform"] = [deform_check(*args, f"{label} pass {k + 2}", device) for k, (args, _) in
+                     enumerate(calls["deform"])]
+    out["deform_launches"] = launches
     print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out)}", flush=True)
     return out
+
+
+def plain_deformed_pairs(frames, u, v, rows_prev, cols_prev):
+    """``multipass.deformed_pairs`` on its plain version, on any device (the check's reference)."""
+    from pyorc_tpu_torch.ops import multipass
+
+    coords = multipass._dense_coords(rows_prev, cols_prev, *frames.shape[1:], frames.device)
+    return multipass._deformed_pairs(frames, u, v, rows_prev, cols_prev, coords)
+
+
+def _grid_sample_pairs(frames, u, v, rows_prev, cols_prev, coords):
+    """A yardstick the port never calls: the pairs' two bilinear samplings as
+    ``torch.nn.functional.grid_sample`` (border padding, corners aligned) on the plain version's
+    sample coordinates, made here beforehand; returns a function of no arguments that runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from pyorc_tpu_torch.ops import multipass
+
+    h, w = frames.shape[1:]
+    dr = multipass._grid_to_dense(-v, rows_prev, cols_prev, h, w, coords)
+    dc = multipass._grid_to_dense(u, rows_prev, cols_prev, h, w, coords)
+    base_r = torch.arange(h, dtype=torch.float32, device=frames.device)[:, None]
+    base_c = torch.arange(w, dtype=torch.float32, device=frames.device)[None, :]
+    grids = [
+        torch.stack([(base_c + sign * dc / 2) * (2 / (w - 1)) - 1, (base_r + sign * dr / 2) * (2 / (h - 1)) - 1], -1)
+        for sign in (-1, 1)
+    ]
+    del dr, dc
+    a, b = frames[:-1].unsqueeze(1), frames[1:].unsqueeze(1)
+
+    def run():
+        return [F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+                for img, grid in ((a, grids[0]), (b, grids[1]))]
+
+    return run
+
+
+DEFORM_PIECE = 25  # pairs of one plain call in the deformation check's comparison
+
+
+def deform_check(frames, u, v, rows_prev, cols_prev, label, device, reps=10, piece=DEFORM_PIECE):
+    """One deformed pass: the kernel's pairs (``deformed_pairs``) against the plain version's on the
+    same inputs, bit for bit, and the ``grid_sample`` yardstick's largest difference from them on the
+    first ``piece`` pairs; on the card the kernel alone (``_launch_deform`` on the wrapper's
+    coordinates), the plain version and the yardstick ("sampling only") timed, median of ``reps`` (3
+    for the plain version), beside the bound (``roofline.deform_bound``).
+
+    The plain version runs on ``piece`` pairs at a time (a pair's bits depend on its own frames and
+    predictor only), and the kernel's pairs are freed before the timings, so the check holds no more
+    device memory at once than the cascade's plain run before it: later phases' automatic chunk
+    plans read the free memory they would read without it.
+    """
+    import torch
+
+    from pyorc_tpu_torch.ops import multipass, roofline
+
+    n_pairs = frames.shape[0] - 1
+    got = multipass.deformed_pairs(frames, u, v, rows_prev, cols_prev)
+    coords = multipass._dense_coords(rows_prev, cols_prev, *frames.shape[1:], frames.device)
+    err = 0.0
+    for p0 in range(0, n_pairs, piece):
+        p1 = min(p0 + piece, n_pairs)
+        want = multipass._deformed_pairs(frames[p0 : p1 + 1], u[p0:p1], v[p0:p1], rows_prev, cols_prev, coords)
+        part = got[2 * p0 : 2 * p1]
+        if part.shape != want.shape or not torch.equal(part.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{label}: the deformation kernel's pairs {p0}-{p1 - 1} differ from the plain "
+                                 f"version's (max |d| {float((part - want).abs().max())})")
+        err = max(err, float((part - want).abs().max()))
+    row = {"n_pairs": n_pairs, "grid": list(u.shape[1:]), "bitwise": True, "max_abs_err": err}
+    if device != "cpu":
+        head = min(piece, n_pairs)
+        a, b = _grid_sample_pairs(frames[: head + 1], u[:head], v[:head], rows_prev, cols_prev, coords)()
+        row["grid_sample_max_abs_diff"] = max(float((a[:, 0] - got[0 : 2 * head : 2]).abs().max()),
+                                              float((b[:, 0] - got[1 : 2 * head : 2]).abs().max()))
+        del a, b, got, want, part
+        row["ms"] = _median_ms(lambda: multipass._launch_deform(frames, u, v, *coords), reps)
+        row["plain_ms"] = _median_ms(lambda: multipass._deformed_pairs(frames, u, v, rows_prev, cols_prev, coords), 3)
+        row["grid_sample_ms"] = _median_ms(_grid_sample_pairs(frames, u, v, rows_prev, cols_prev, coords), reps)
+    row["bound_ms"], row["bound_by"] = roofline.deform_bound(frames, u)
+    return row
 
 
 def ensemble_main_path_check(proj, piv, device, window=ENS_WINDOW, reps=3):
@@ -2320,18 +2469,28 @@ def _stage_rows(prof, times):
     A stage's device time is the union of the device events (kernels and
     copies) that fall inside its host time range; every stage ends with a
     copy to the host, so its device work finishes inside that range.
-    ``copy_ms`` is the part spent in host<->device copies.
+    ``copy_ms`` is the part spent in host<->device copies, ``piv_kernels_ms``
+    the part in the correlation kernels (per pair and ensemble) and
+    ``deform_ms`` the part in the deformation kernel.
     """
     events = prof.events()
     ranges = {e.name: e.time_range for e in events if e.name in times and e.device_type.name == "CPU"}
     device_events = [e for e in events if e.device_type.name == "CUDA" and e.name not in times]
-    busy = sorted((e.time_range.start, e.time_range.end) for e in device_events)
-    copies = sorted((e.time_range.start, e.time_range.end) for e in device_events if e.name.startswith("Memcpy"))
+
+    def spans(keep):
+        return sorted((e.time_range.start, e.time_range.end) for e in device_events if keep(e.name))
+
+    busy = spans(lambda name: True)
+    parts = {
+        "copy_ms": spans(lambda name: name.startswith("Memcpy")),
+        "piv_kernels_ms": spans(lambda name: "piv_pairs_kernel" in name or "piv_ensemble_kernel" in name),
+        "deform_ms": spans(lambda name: "deform_pairs_kernel" in name),
+    }
     out = {}
     for name, rng in ranges.items():
         wall = (rng.end - rng.start) / 1e3
         device_ms = _union_ms(busy, rng)
-        out[name] = {"wall_ms": wall, "device_ms": device_ms, "copy_ms": _union_ms(copies, rng),
+        out[name] = {"wall_ms": wall, "device_ms": device_ms, **{k: _union_ms(v, rng) for k, v in parts.items()},
                      "idle": 1.0 - device_ms / wall}
     return out
 
@@ -2708,13 +2867,17 @@ def multidevice_phase(proj, piv26, mp_piv32, ens_proj, device, folder, clip=None
     args = _grid(frames.shape[1:], 32)
     (u, v, _, _), n = _launched("piv_pairs", lambda: parallel.piv_multipass_sharded(
         frames, args[1], args[2], mesh=mesh, passes=3))
+    n_deform = piv_kernels.LAUNCHES["deform_pairs"]
     if n != 3 * n_shards * on_card:
         raise AssertionError(f"{label}: {n} launches for 3 passes on {n_shards} shards")
+    if on_card:
+        check_deform_launches(label, n_deform, n, 3, piv_kernels.KERNEL_ROUTE.get("deform_pairs"))
     scale = RES / dt
     got = [(u * scale).astype(np.float32), (v * scale).astype(np.float32)]
     # every pass runs one pair a block (pair_stride 2), however the pairs are split: held on every window
     results[label] = hold_sharded(got, [mp_piv32["v_x"].values, mp_piv32["v_y"].values], label, scale=scale,
                                   bitwise=False)
+    results[label]["deform_pairs_launches"] = n_deform  # kept out of `launches`, which counts piv_pairs
     launches[label] = n
     walls[label] = {"sharded_ms": _wall_ms(lambda: parallel.piv_multipass_sharded(
         frames, args[1], args[2], mesh=mesh, passes=3), reps=1)}
@@ -3023,7 +3186,8 @@ def main(argv) -> int:
         (ROOT / "build" / "profile_slice.json").write_text(json.dumps(profile, indent=1))
         for name, row in stages.items():
             print(f"profile {name}: wall {row['wall_ms']:.1f} ms, device {row['device_ms']:.1f} ms "
-                  f"(copies {row['copy_ms']:.1f} ms), idle {row['idle']:.3f}, "
+                  f"(copies {row['copy_ms']:.1f}, correlation kernels {row['piv_kernels_ms']:.1f}, deformation "
+                  f"kernel {row['deform_ms']:.1f} ms), idle {row['idle']:.3f}, "
                   f"bytes up {row.get('h2d_bytes')}, down {row.get('d2h_bytes')}")
         spans = {k: {m: round(x, 3) for m, x in r.items()} for k, r in spans.items()}
         print("profile lazy chain spans (host ms, calls; the prefetch thread's): "
@@ -3121,11 +3285,22 @@ def main(argv) -> int:
     for w_px, res in mp_results.items():
         if res["launches"] <= 0 or res["launches"] % res["passes"]:
             raise AssertionError(f"multipass {w_px} px: {res['launches']} kernel launches for {res['passes']} passes")
-    print(f"multipass slice on the projected stack: wall {wall:.3f} s; {mp_launches} launches; stages "
-          + json.dumps({k: round(v, 4) for k, v in mp_times.items()}))
+        check_deform_launches(f"multipass slice {w_px} px", res["deform_launches"], res["launches"], res["passes"],
+                              res["deform_route"])
+    mp_deform = sum(res["deform_launches"] for res in mp_results.values())
+    print(f"multipass slice on the projected stack: wall {wall:.3f} s; {mp_launches} launches, {mp_deform} "
+          "deformation launches; stages " + json.dumps({k: round(v, 4) for k, v in mp_times.items()}))
     print("multipass slice results " + json.dumps(mp_results))
     print("single-pass slice results beside them " + json.dumps(results))
+    t0 = time.perf_counter()
+    mp_chunks = multipass_chunks_check(proj, mp_pivs[32])
+    check_deform_launches(f"multipass engine chunks of {MULTIPASS_CHUNKS} frames", mp_chunks["deform_launches"],
+                          mp_chunks["launches"], 3, mp_chunks["deform_route"])
+    print(f"multipass engine chunks (get_piv(passes=3) at chunksize {MULTIPASS_CHUNKS} against one chunk, bitwise): "
+          f"wall {time.perf_counter() - t0:.3f} s; " + json.dumps(mp_chunks), flush=True)
     mp_main = {w_px: multipass_main_path_check(proj, mp_pivs[w_px], device, w_px) for w_px in mp_pivs}
+    print(f"deformation kernel against its plain version, each deformed pass ({_card_line()}): "
+          + json.dumps({w_px: out["deform"] for w_px, out in mp_main.items()}), flush=True)
     mp_piv32 = mp_pivs[32]  # for step 5g
     del mp_pivs
 
@@ -3226,6 +3401,9 @@ def main(argv) -> int:
 
     main_size = 16
     coarse = mp_main[32]["passes"][0]  # the 128 px pass
+    deform_rows = {w_px: out["deform"] for w_px, out in mp_main.items()}
+    deform_main = deform_rows[26][0]  # the 26 px cascade's first deformation: 125 pairs on the 104 px grid
+    md_deform = md_results["sharded multipass 32 px x3"]["deform_pairs_launches"]
     ns = _fmt(NS_WINDOW)
     record = {"kernels": [
         {
@@ -3258,6 +3436,19 @@ def main(argv) -> int:
             f"plain_ms_{ENS_WIDE_WINDOW}px": wide_main["plain_ms"],
             f"bound_ms_{ENS_WIDE_WINDOW}px": wide_main["bound_ms"],
             f"bound_by_{ENS_WIDE_WINDOW}px": wide_main["bound_by"],
+        },
+        {
+            "name": "deform_pairs", "route": "cuda", "source": "pyorc_tpu_torch/csrc/deform.cu",
+            "replaces": "none (pyorc_tpu/ops/multipass.py:181, the XLA gather fusion of _deform_stage)",
+            "launches": mp_deform + mp_chunks["deform_launches"] + md_deform, "launches_slice": mp_deform,
+            "launches_engine_chunks": mp_chunks["deform_launches"], "launches_multidevice": md_deform,
+            "launches_main_path_check": sum(out["deform_launches"] for out in mp_main.values()),
+            "max_abs_err": max(r["max_abs_err"] for rows in deform_rows.values() for r in rows),
+            "ms": deform_main["ms"], "plain_ms": deform_main["plain_ms"], "bound_ms": deform_main["bound_ms"],
+            "bound_by": deform_main["bound_by"], "library_ms": deform_main["grid_sample_ms"],
+            "library_call": "torch.nn.functional.grid_sample x2, sampling only",
+            "passes": {f"{w_px}px": [{k: r[k] for k in ("grid", "ms", "plain_ms", "bound_ms", "grid_sample_ms")}
+                                     for r in rows] for w_px, rows in deform_rows.items()},
         },
     ]}
     print(json.dumps(record))

@@ -75,7 +75,8 @@ MODULE_SECTIONS = [
      "The hand-written per-pair and ensemble kernels (`csrc/*.cu`), their plain versions, the route plan and "
      "the JAX package's engine names."),
     ("Multipass PIV", "pyorc_tpu_torch.ops.multipass",
-     "Coarse-to-fine window deformation PIV with the normalized median test between passes."),
+     "Coarse-to-fine window deformation PIV with the normalized median test between passes; the deformation "
+     "is the hand-written `deform_pairs` kernel (`csrc/deform.cu`) on the card."),
     ("STIV ops", "pyorc_tpu_torch.ops.stiv",
      "Space-time image velocimetry: batched line sampling + structure-tensor streak angles."),
     ("Multi-device parallel", "pyorc_tpu_torch.parallel.piv",

@@ -17,8 +17,13 @@ on the interleaved deformed pairs (a0, b0, a1, b1, ...) with
 plain version on the CPU. A coarser pass (256 px for ``window_size`` 64 and
 ``passes=3``) goes by plan to the XLA-semantics pipeline
 :func:`pyorc_tpu_torch.ops.piv.piv_pairs`, as the JAX package's kernel route
-sends it to its XLA pipeline. The deformation, the median test and the
-predictor's resampling are plain tensor ops in float32.
+sends it to its XLA pipeline. The deformation of every pass after the first
+is :func:`deformed_pairs`: on the GPU one launch of the hand-written CUDA
+kernel ``deform_pairs`` (``csrc/deform.cu``; it replaces the XLA gather
+fusion of the JAX package's ``_deform_stage``), whose pairs equal its plain
+version :func:`_deformed_pairs` bit for bit; on the CPU that plain version.
+The median test and the predictor's resampling are plain tensor ops in
+float32.
 
 ``map_coordinates(order=1, mode="nearest")`` of the JAX package is
 :func:`pyorc_tpu_torch.ops.interp.map_linear`. ``jnp.nanmedian`` averages the two middle
@@ -37,10 +42,11 @@ from . import piv_kernels
 from . import windows as win
 from .interp import map_linear
 
-__all__ = ["piv_multipass", "multipass_window_sizes"]
+__all__ = ["piv_multipass", "multipass_window_sizes", "deformed_pairs"]
 
-# pixels of one block of pairs deformed at a time (bounds the gather's
-# int64 index tensors to ~0.5 GB each)
+# pixels of one block of pairs that the plain version deforms at a time (bounds
+# its gathers' int64 index tensors to ~0.5 GB each); the kernel takes a chunk in
+# one launch
 _DEFORM_BLOCK_PX = 1 << 26
 
 
@@ -112,14 +118,19 @@ def _grid_coords(src: np.ndarray, dst, device) -> torch.Tensor:
     return torch.clamp(pos, 0.0, len(src) - 1.0)
 
 
-def _grid_to_dense(field: torch.Tensor, rows: np.ndarray, cols: np.ndarray, h: int, w: int) -> torch.Tensor:
+def _dense_coords(rows: np.ndarray, cols: np.ndarray, h: int, w: int, device):
+    """(rr [h], cc [w]): each pixel row and column in the index space of the window grid (rows, cols)."""
+    return _grid_coords(rows, np.arange(h), device), _grid_coords(cols, np.arange(w), device)
+
+
+def _grid_to_dense(field: torch.Tensor, rows: np.ndarray, cols: np.ndarray, h: int, w: int, coords=None):
     """Bilinear interpolation of a window-grid field onto the pixel grid.
 
     field: [..., n_rows, n_cols] at window centres (rows, cols); edge cells
-    extend to the frame border (clamped index space).
+    extend to the frame border (clamped index space). ``coords`` are
+    :func:`_dense_coords` made by the caller (by default made here).
     """
-    rr = _grid_coords(rows, np.arange(h), field.device)
-    cc = _grid_coords(cols, np.arange(w), field.device)
+    rr, cc = _dense_coords(rows, cols, h, w, field.device) if coords is None else coords
     return map_linear(field, rr[:, None], cc[None, :])
 
 
@@ -148,23 +159,83 @@ def _deform_pair(img_a: torch.Tensor, img_b: torch.Tensor, dr: torch.Tensor, dc:
     return a_def, b_def
 
 
-def _deformed_pairs(a_stack, b_stack, u, v, rows_prev, cols_prev):
-    """The pairs deformed by the predictor (u, v) on the window grid (rows_prev,
-    cols_prev), interleaved (a0, b0, a1, b1, ...) into [2 * n_pairs, h, w].
+def _deformed_pairs(frames, u, v, rows_prev, cols_prev, coords):
+    """The plain version of :func:`deformed_pairs`: the pairs of ``frames``
+    [T, H, W] deformed by the predictor (u, v) [T - 1, n_rows, n_cols] on the
+    window grid (rows_prev, cols_prev), interleaved (a0, b0, a1, b1, ...) into
+    [2 (T - 1), H, W]. ``coords`` are the caller's :func:`_dense_coords`, the
+    ones the kernel reads.
 
     Works through blocks of pairs so the dense fields and the gather indices
     of one block stay near ``_DEFORM_BLOCK_PX`` pixels.
     """
-    n_pairs, h, w = a_stack.shape
-    out = torch.empty((n_pairs, 2, h, w), dtype=torch.float32, device=a_stack.device)
+    n_pairs, h, w = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    a_stack, b_stack = frames[:-1], frames[1:]
+    out = torch.empty((n_pairs, 2, h, w), dtype=torch.float32, device=frames.device)
     block = max(1, _DEFORM_BLOCK_PX // (h * w))
     for p0 in range(0, n_pairs, block):
         sl = slice(p0, p0 + block)
         # dense per-pixel predictor (dr = -v rows-down, dc = u cols-right)
-        dr = _grid_to_dense(-v[sl], rows_prev, cols_prev, h, w)
-        dc = _grid_to_dense(u[sl], rows_prev, cols_prev, h, w)
+        dr = _grid_to_dense(-v[sl], rows_prev, cols_prev, h, w, coords)
+        dc = _grid_to_dense(u[sl], rows_prev, cols_prev, h, w, coords)
         out[sl, 0], out[sl, 1] = _deform_pair(a_stack[sl], b_stack[sl], dr, dc)
     return out.view(2 * n_pairs, h, w)
+
+
+def _check_deform(frames, u, v, rows_prev, cols_prev):
+    """Raise unless ``frames`` is a contiguous float32 [T, H, W] stack (T >= 2) and ``u``, ``v`` are
+    contiguous float32 [T - 1, n_rows, n_cols] on its device, the grid of ``rows_prev`` x ``cols_prev``."""
+    if frames.dim() != 3 or frames.shape[0] < 2:
+        raise ValueError(f"deformed_pairs: frames must be [T, H, W] with T >= 2, got shape {tuple(frames.shape)}")
+    want = (frames.shape[0] - 1, len(rows_prev), len(cols_prev))
+    for name, t in (("frames", frames), ("u", u), ("v", v)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != frames.device:
+            raise ValueError(f"deformed_pairs: {name} must be contiguous float32 on {frames.device}, got "
+                             f"{t.dtype} on {t.device} (contiguous: {t.is_contiguous()})")
+        if name != "frames" and tuple(t.shape) != want:
+            raise ValueError(f"deformed_pairs: {name} must be [T - 1, n_rows, n_cols] = {want}, got {tuple(t.shape)}")
+
+
+def _launch_deform(frames, u, v, rr, cc):
+    """One launch of the ``deform_pairs`` kernel: the checked inputs of :func:`deformed_pairs` -> pairs."""
+    t, h, w = frames.shape
+    n_rows, n_cols = u.shape[1:]
+    out = torch.empty((2 * (t - 1), h, w), dtype=torch.float32, device=frames.device)
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    with torch.cuda.device(frames.device):
+        err = piv_kernels._library().deform_pairs_launch(
+            frames.data_ptr(), t - 1, h, w, u.data_ptr(), v.data_ptr(), n_rows, n_cols, rr.data_ptr(),
+            cc.data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"deform_pairs: CUDA kernel launch failed (cudaError {err})")
+    piv_kernels.LAUNCHES["deform_pairs"] += 1
+    return out
+
+
+def deformed_pairs(frames, u, v, rows_prev, cols_prev):
+    """Symmetric deformation of every pair of ``frames`` by the previous pass's predictor.
+
+    frames [T, H, W] contiguous float32; u, v [T - 1, n_rows, n_cols] float32
+    on the window grid with centres ``rows_prev`` x ``cols_prev`` (pixels).
+    Returns the interleaved pairs [2 (T - 1), H, W]: pair p is frame p sampled
+    at x - d/2 and frame p + 1 at x + d/2, bilinear with edge clamping, d the
+    predictor interpolated to the pixel. A CUDA tensor launches the
+    ``deform_pairs`` kernel once; a CPU tensor runs :func:`_deformed_pairs`.
+    Both read the pixel grid's coordinates in the window grid made here once,
+    on the frames' device, so the kernel gives the plain version's bits. The
+    predictor must be finite, as the median test leaves it.
+    """
+    _check_deform(frames, u, v, rows_prev, cols_prev)
+    rr, cc = _dense_coords(rows_prev, cols_prev, frames.shape[1], frames.shape[2], frames.device)
+    if frames.device.type == "cuda":
+        out = _launch_deform(frames, u, v, rr, cc)
+        piv_kernels.KERNEL_ROUTE["deform_pairs"] = "cuda"
+        return out
+    if frames.device.type != "cpu":
+        raise ValueError(f"deformed_pairs: no kernel for device {frames.device}")
+    piv_kernels.KERNEL_ROUTE["deform_pairs"] = "plain_cpu"
+    return _deformed_pairs(frames, u, v, rows_prev, cols_prev, (rr, cc))
 
 
 def piv_multipass(
@@ -213,20 +284,19 @@ def piv_multipass(
         raise ValueError(
             f"(n_rows, n_cols)={(n_rows, n_cols)} is not the last pass's grid of {schedule[-1]} px windows"
         )
-    frames = imgs.to(torch.float32)
-    a_stack, b_stack = frames[:-1], frames[1:]
-    n_pairs = a_stack.shape[0]
+    frames = imgs.to(torch.float32).contiguous()
+    n_pairs = frames.shape[0] - 1
     u = v = cmax = s2n = None
     rows_prev = cols_prev = None
     for k, (ws, ov) in enumerate(zip(schedule, overlaps)):
         cols_k, rows_k = win.get_rect_coordinates(dim_size, ws, ws, ov)
         nr_k, nc_k = len(rows_k), len(cols_k)
         if k == 0:
-            pairs = torch.stack([a_stack, b_stack], dim=1).view(2 * n_pairs, h, w)
+            pairs = torch.stack([frames[:-1], frames[1:]], dim=1).view(2 * n_pairs, h, w)
             u_pred = torch.zeros((n_pairs, nr_k, nc_k), dtype=torch.float32, device=frames.device)
             v_pred = torch.zeros_like(u_pred)
         else:
-            pairs = _deformed_pairs(a_stack, b_stack, u, v, rows_prev, cols_prev)
+            pairs = deformed_pairs(frames, u, v, rows_prev, cols_prev)
             u_pred = _grid_to_grid(u, rows_prev, cols_prev, rows_k, cols_k)
             v_pred = _grid_to_grid(v, rows_prev, cols_prev, rows_k, cols_k)
         du, dv, cmax, s2n = correlate(pairs, dim_size, ws, ov, nr_k, nc_k, signal_threshold, pair_stride=2)

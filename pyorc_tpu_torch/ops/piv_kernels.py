@@ -70,7 +70,11 @@ give, bit for bit, the per-pair outputs of one launch over the whole stack
 (the ensemble's ``corr_sum`` is a sum of the pieces' partial sums).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into one
-library under ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``.
+library under ``build/pyorc_tpu_torch/`` and loaded with ``ctypes``. The same
+library holds a third kernel, multipass PIV's window deformation
+(``csrc/deform.cu``), whose wrapper is
+:func:`pyorc_tpu_torch.ops.multipass.deformed_pairs` and whose launches count
+in :data:`LAUNCHES` as ``"deform_pairs"``.
 """
 
 from __future__ import annotations
@@ -115,7 +119,7 @@ __all__ = [
 KERNEL_ROUTE: dict = {}
 # Launches of each kernel since import (or since a caller reset them to 0);
 # only the kernel launch sites add to them.
-LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0}
+LAUNCHES = {"piv_pairs": 0, "piv_ensemble": 0, "deform_pairs": 0}
 
 MIN_WINDOW = 8
 MAX_WINDOW = 128
@@ -263,6 +267,17 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_float,  # has_threshold, signal_threshold
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # cos/sin tables of y, of x
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # corr_sum, count, cmax, s2n
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.deform_pairs_launch  # ops/multipass.py::deformed_pairs
+    fn.argtypes = [
+        ctypes.c_void_p,  # frames [T, H, W] float32
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_pairs (T - 1), H, W
+        ctypes.c_void_p, ctypes.c_void_p,  # u, v [n_pairs, n_rows, n_cols]
+        ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
+        ctypes.c_void_p, ctypes.c_void_p,  # rr [H], cc [W]: pixel rows and columns in the grid's index space
+        ctypes.c_void_p,  # pairs [2 n_pairs, H, W]
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int

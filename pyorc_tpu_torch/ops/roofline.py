@@ -1,23 +1,35 @@
-"""The least time an H100 could take for the PIV kernels' work: one definition for
+"""The least time an H100 could take for the hand-written kernels' work: one definition for
 ``chip_smoke.py`` and ``bench_torch.py``.
 
-A kernel's bound is the larger of two times: the operations of the FFT
-algorithm, whatever implements it, over the card's fp32 peak outside the
-tensor cores, and the bytes it must move (each input read once, each output
-written once) over the card's memory rate. The peaks are the H100 SXM's
-published ones at its full 700 W power limit; a card set below it runs
-slower, so every bound stands beside the card's name and power limit.
+A kernel's bound is the larger of two times: its operations (for the PIV
+kernels those of the FFT algorithm, whatever implements it) over the card's
+fp32 peak outside the tensor cores, and the bytes it must move (each input
+read once, each output written once) over the card's memory rate. The peaks
+are the H100 SXM's published ones at its full 700 W power limit; a card set
+below it runs slower, so every bound stands beside the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import math
 
-__all__ = ["PEAK_FP32_FLOPS", "PEAK_HBM_BYTES", "work_bound", "pairs_bound", "ensemble_bound"]
+__all__ = ["PEAK_FP32_FLOPS", "PEAK_HBM_BYTES", "work_bound", "pairs_bound", "ensemble_bound", "deform_bound"]
 
 # H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# float32 operations of the deformation a pair pixel: four bilinear samples (the
+# predictor's two at the pixel, then frame A's and frame B's) of 17 each (two
+# floors, two weights and their complements, four weight products, four
+# products, three sums), two halvings and four sample coordinates
+DEFORM_OPS_PER_PIXEL = 4 * 17 + 2 + 4
+
+
+def _ms(flops, n_bytes):
+    """(bound_ms, "operations" or "bytes") of work of ``flops`` operations moving ``n_bytes``."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
@@ -36,9 +48,7 @@ def work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=0):
     fft = 2.5 * n_pix * math.log2(n_pix)
     n_win = n_rows * n_cols
     flops = n_win * (frames.shape[0] * (fft + 3 * n_pix) + n_pairs * (fft + (7 + per_pair_extra) * n_pix))
-    n_bytes = frames.numel() * frames.element_size() + out_bytes
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return _ms(flops, frames.numel() * frames.element_size() + out_bytes)
 
 
 def pairs_bound(frames, args, pair_stride=1):
@@ -53,3 +63,14 @@ def ensemble_bound(frames, args):
     n_pairs, n_win = frames.shape[0] - 1, args[3] * args[4]
     out_bytes = 4 * (n_win * args[1][0] * args[1][1] + n_win + 2 * n_pairs * n_win)
     return work_bound(frames, args, n_pairs, out_bytes, per_pair_extra=1)
+
+
+def deform_bound(frames, u):
+    """Multipass's deformation kernel: ``frames`` [T, H, W] float32 deformed by ``u``, ``v`` [T - 1,
+    n_rows, n_cols] into the pairs [2 (T - 1), H, W]. Bytes: the frames, both predictors and the two
+    coordinate vectors read once, the pairs written once; operations: DEFORM_OPS_PER_PIXEL a pair
+    pixel. Returns (bound_ms, "operations" or "bytes")."""
+    t, h, w = frames.shape
+    n_pairs = t - 1
+    n_bytes = 4 * (t * h * w + 2 * u.numel() + h + w + 2 * n_pairs * h * w)
+    return _ms(DEFORM_OPS_PER_PIXEL * n_pairs * h * w, n_bytes)

@@ -204,3 +204,74 @@ def test_copies_are_counted_where_they_happen(cuda):
     torch.cuda.synchronize()
     assert torch.equal(up.cpu(), torch.as_tensor(np.ascontiguousarray(view)))
     assert _device.COPY_BYTES["h2d"] - before == host.nbytes + view.nbytes
+
+
+# ------------------------------------------------------------ multipass deformation
+# Cases of ops/multipass.deformed_pairs, shared with the CPU tests (tests/test_torch_deform.py against
+# JAX, tests/test_torch_kernel_emulation.py for the kernel's code): (frames, h, w, window, step) of the
+# predictor's grid, the predictor's spread [px], and pixels of one plain block (None: the default).
+DEFORM_CASES = {
+    "odd-non-square": (5, 45, 77, (16, 16), (8, 8), 3.0, None),
+    "one-row-grid": (4, 30, 96, (24, 16), (12, 8), 3.0, None),  # one grid row: _grid_coords' step 1.0
+    "one-column-grid": (4, 96, 30, (16, 24), (8, 12), 3.0, None),
+    "past-all-edges": (4, 40, 60, (16, 16), (8, 8), 50.0, None),  # samples up to ~25 px off every edge
+    "over-one-block": (6, 24, 32, (16, 16), (8, 8), 3.0, 2 * 24 * 32),  # 5 pairs in plain blocks of 2
+}
+DEFORM_CARD_CASE = (9, 880, 1720, (64, 64), (32, 32), 3.0, None)  # the 1080p slice's projected frames, 64 px pass
+
+
+def deform_inputs(case):
+    """(frames [T, H, W], u, v [T - 1, n_rows, n_cols], rows, cols, plain block px) of ``case`` (a key of
+    DEFORM_CASES, or DEFORM_CARD_CASE), numpy float32 made from a seed. ``past-all-edges`` takes a
+    predictor of alternating sign around its spread, so samples leave the frame on all four sides."""
+    n_frames, h, w, window, step, spread, block_px = DEFORM_CASES.get(case, case)
+    rng = np.random.default_rng(n_frames * 1000 + h + w)
+    frames = rng.uniform(0, 255, (n_frames, h, w)).astype(np.float32)
+    cols, rows = win.get_rect_coordinates((h, w), window, window, (window[0] - step[0], window[1] - step[1]))
+    shape = (n_frames - 1, len(rows), len(cols))
+    if spread > 10:
+        signs = np.where((np.arange(shape[1])[:, None] + np.arange(shape[2])[None, :]) % 2, 1.0, -1.0)
+        u, v = (spread * signs * rng.uniform(0.8, 1.2, shape) * s for s in (1, -1))
+    else:
+        u, v = rng.normal(2.3, spread, shape), rng.normal(-1.4, spread, shape)
+    return frames, u.astype(np.float32), v.astype(np.float32), rows, cols, block_px
+
+
+def test_deform_kernel_bitwise_plain_at_1080p(cuda):
+    """The kernel's pairs equal the plain version's on the card bit for bit: 9 frames of 880x1720 (the
+    1080p slice's projected frames) deformed by a predictor on the 64 px grid."""
+    from pyorc_tpu_torch.ops import multipass
+
+    frames, u, v, rows, cols, _ = deform_inputs(DEFORM_CARD_CASE)
+    f, ut, vt = (torch.as_tensor(x, device=cuda) for x in (frames, u, v))
+    before = piv_kernels.LAUNCHES["deform_pairs"]
+    got = multipass.deformed_pairs(f, ut, vt, rows, cols)
+    assert piv_kernels.LAUNCHES["deform_pairs"] == before + 1
+    assert piv_kernels.KERNEL_ROUTE["deform_pairs"] == "cuda"
+    coords = multipass._dense_coords(rows, cols, *frames.shape[1:], cuda)
+    want = multipass._deformed_pairs(f, ut, vt, rows, cols, coords)
+    torch.cuda.synchronize()
+    assert got.shape == (16, 880, 1720)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_deform_cuda_tensor_never_takes_the_plain_route(cuda, monkeypatch):
+    """On a CUDA tensor the wrapper and piv_multipass launch the kernel, never the plain version."""
+    from pyorc_tpu_torch.ops import multipass
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain deformation ran on a CUDA tensor")
+
+    monkeypatch.setattr(multipass, "_deformed_pairs", refuse)
+    frames, u, v, rows, cols, _ = deform_inputs("odd-non-square")
+    f, ut, vt = (torch.as_tensor(x, device=cuda) for x in (frames, u, v))
+    before = piv_kernels.LAUNCHES["deform_pairs"]
+    multipass.deformed_pairs(f, ut, vt, rows, cols)
+    assert piv_kernels.KERNEL_ROUTE["deform_pairs"] == "cuda"
+    stack = torch.as_tensor(_frames(np.random.default_rng(4), 4, 256, 320), device=cuda)
+    args = ((256, 320), (16, 16), (8, 8), *win.get_field_shape((256, 320), (16, 16), (8, 8)))
+    multipass.piv_multipass(stack, *args, passes=3)
+    torch.cuda.synchronize()
+    assert piv_kernels.LAUNCHES["deform_pairs"] == before + 1 + 2
+    with pytest.raises(ValueError, match="contiguous float32"):
+        multipass.deformed_pairs(f.to(torch.float64), ut, vt, rows, cols)

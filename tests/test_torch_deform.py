@@ -1,0 +1,119 @@
+"""Multipass PIV's window deformation (``ops/multipass.deformed_pairs``) against the JAX package on the CPU.
+
+On a CPU tensor the wrapper takes its plain version (``_deformed_pairs``);
+its pairs are held to JAX's jitted ``_deform_stage`` (``a_k``, ``b_k``)
+within 1e-5 * 255, the tolerance of the module test in
+``tests/test_torch_multipass.py``, on inputs made with numpy from seeds
+(``test_torch_cuda.DEFORM_CASES``): odd non-square frames, one-row and
+one-column predictor grids, a predictor that samples past all four edges, and
+more pairs than one plain block. The kernel's own code is held to the plain
+version bit for bit on the same cases in
+``tests/test_torch_kernel_emulation.py``, and on the card in
+``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pyorc_tpu_torch
+from pyorc_tpu.ops import multipass as jmp
+from pyorc_tpu_torch.ops import multipass as tmp
+from pyorc_tpu_torch.ops import piv_kernels
+from pyorc_tpu_torch.ops import windows as win
+
+from test_torch_cuda import DEFORM_CASES, _frames, deform_inputs
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device():
+    pyorc_tpu_torch.set_device("cpu")
+    torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("case", list(DEFORM_CASES))
+def test_deformed_pairs_match_jax(case, monkeypatch):
+    frames, u, v, rows, cols, block_px = deform_inputs(case)
+    n_pairs, h, w = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    if block_px:
+        monkeypatch.setattr(tmp, "_DEFORM_BLOCK_PX", block_px)
+    blocks = []
+    deform_pair = tmp._deform_pair
+    monkeypatch.setattr(tmp, "_deform_pair", lambda a, *rest: blocks.append(a.shape[0]) or deform_pair(a, *rest))
+    before = dict(piv_kernels.LAUNCHES)
+    got = tmp.deformed_pairs(*(torch.as_tensor(x) for x in (frames, u, v)), rows, cols).numpy()
+    assert piv_kernels.KERNEL_ROUTE["deform_pairs"] == "plain_cpu" and piv_kernels.LAUNCHES == before
+    assert got.shape == (2 * n_pairs, h, w) and np.isfinite(got).all()
+    assert blocks == ([2, 2, 1] if block_px else [n_pairs])
+    if case == "past-all-edges":
+        dr = tmp._grid_to_dense(-torch.as_tensor(v), rows, cols, h, w).numpy()
+        dc = tmp._grid_to_dense(torch.as_tensor(u), rows, cols, h, w).numpy()
+        y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+        for r, c in ((y - dr / 2, x - dc / 2), (y + dr / 2, x + dc / 2)):
+            assert r.min() < -10 and r.max() > h + 9 and c.min() < -10 and c.max() > w + 9
+    grid = tuple(map(float, rows)), tuple(map(float, cols))
+    a_k, b_k, _, _ = jmp._deform_stage(frames[:-1], frames[1:], u, v, *grid, *grid)
+    np.testing.assert_allclose(got[0::2], np.asarray(a_k), atol=1e-5 * 255, rtol=0)
+    np.testing.assert_allclose(got[1::2], np.asarray(b_k), atol=1e-5 * 255, rtol=0)
+
+
+def test_deformed_pairs_check_their_inputs():
+    frames, u, v, rows, cols, _ = deform_inputs("odd-non-square")
+    f, ut, vt = (torch.as_tensor(x) for x in (frames, u, v))
+    bad = {
+        "frames must be \\[T, H, W\\]": (f[0], ut, vt, rows, cols),
+        "frames must be contiguous float32": (f.to(torch.float64), ut, vt, rows, cols),
+        "u must be contiguous float32": (f, ut.transpose(1, 2).contiguous().transpose(1, 2), vt, rows, cols),
+        "v must be \\[T - 1, n_rows, n_cols\\]": (f, ut, vt[1:], rows, cols),
+        "u must be \\[T - 1, n_rows, n_cols\\]": (f, ut, vt, rows[1:], cols),
+    }
+    for message, args in bad.items():
+        with pytest.raises(ValueError, match=message):
+            tmp.deformed_pairs(*args)
+
+
+def test_piv_multipass_deforms_through_the_wrapper(monkeypatch):
+    """Every pass after the first deforms the whole float32 stack through ``deformed_pairs``, on the
+    previous pass's grid, and the correlation gets exactly those pairs."""
+    calls, deformed, correlated = [], [], []
+    wrapper, routed = tmp.deformed_pairs, piv_kernels.piv_pairs_routed
+
+    def deform(frames, u, v, rows_prev, cols_prev):
+        calls.append((frames, u.shape, len(rows_prev), len(cols_prev)))
+        deformed.append(wrapper(frames, u, v, rows_prev, cols_prev))
+        return deformed[-1]
+
+    def correlate(pairs, *args, **kwargs):
+        correlated.append(pairs)
+        return routed(pairs, *args, **kwargs)
+
+    monkeypatch.setattr(tmp, "deformed_pairs", deform)
+    monkeypatch.setattr(piv_kernels, "piv_pairs_routed", correlate)
+    stack = torch.as_tensor(_frames(np.random.default_rng(4), 4, 96, 128))
+    args = ((96, 128), (16, 16), (8, 8), *win.get_field_shape((96, 128), (16, 16), (8, 8)))
+    tmp.piv_multipass(stack, *args, passes=3)
+    assert [c[1:] for c in calls] == [((3, 2, 3), 2, 3), ((3, 5, 7), 5, 7)]  # the 64 and 32 px grids
+    assert all(c[0].dtype == torch.float32 and torch.equal(c[0], stack.float()) for c in calls)
+    assert piv_kernels.KERNEL_ROUTE["deform_pairs"] == "plain_cpu"
+    assert len(correlated) == 3 and correlated[0].shape == (6, 96, 128)
+    assert len(deformed) == 2 and all(c is d for c, d in zip(correlated[1:], deformed))
+
+
+def test_chip_smoke_deform_checks_on_cpu():
+    """chip_smoke's deformation checks rehearsed on the CPU: the launch rule (``passes - 1`` a call of
+    the cascade, route "cuda"), the multipass engine-chunks check and one deformed pass's check."""
+    import chip_smoke
+
+    assert chip_smoke.check_deform_launches("ok", 4, 6, 3, "cuda") == 2
+    for launches, route in ((3, "cuda"), (4, "plain_cpu"), (0, "cuda")):
+        with pytest.raises(AssertionError, match="deformation launches"):
+            chip_smoke.check_deform_launches("bad", launches, 6, 3, route)
+    cc = chip_smoke.nadir_camera_config(480, 640)  # projected 280 x 440: room for the 128 px pass
+    stack = chip_smoke.advected_stack(480, 640, 5, "cpu")
+    proj = chip_smoke.frames_dataarray(stack, cc).frames.normalize(samples=5).frames.project()
+    whole = proj.frames.get_piv(window_size=32, overlap=(16, 16), passes=3)
+    out = chip_smoke.multipass_chunks_check(proj, whole, chunksize=3)
+    assert out == {"chunksize": 3, "launches": 0, "deform_launches": 0, "deform_route": "plain_cpu"}
+    frames, u, v, rows, cols, _ = deform_inputs("one-row-grid")
+    row = chip_smoke.deform_check(*(torch.as_tensor(x) for x in (frames, u, v)), rows, cols, "one row", "cpu")
+    assert row["bitwise"] and row["max_abs_err"] == 0.0 and row["grid"] == [1, 11] and row["bound_by"] == "bytes"

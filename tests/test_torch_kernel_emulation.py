@@ -25,7 +25,7 @@ import torch
 from pyorc_tpu_torch.ops import piv_kernels
 from pyorc_tpu_torch.ops import windows as win
 
-from test_torch_cuda import _compare, _compare_ensemble, _frames, _gap
+from test_torch_cuda import DEFORM_CASES, _compare, _compare_ensemble, _frames, _gap, deform_inputs
 
 CSRC = Path(piv_kernels.__file__).resolve().parent.parent / "csrc"
 
@@ -74,6 +74,14 @@ inline std::vector<float> emu_lanes_f;
 inline std::vector<int> emu_lanes_i;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// IEEE float32 operations that the card's compiler never contracts; g++ runs
+// with -ffp-contract=off, so neither does the host
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+template <class T>
+inline T __ldg(const T* p) { return *p; }
 
 template <class T>
 inline T emu_shfl_xor(std::vector<T>& lanes, T v, int o) {
@@ -140,7 +148,8 @@ def emulated_library(tmp_path_factory):
         sources[-1].write_text(text)
     lib = out / "libpiv_emulated.so"
     proc = subprocess.run(
-        [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out), "-o", str(lib),
+        [gxx, "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-pthread", "-w", "-I", str(out),
+         "-o", str(lib),
          *map(str, sources)],
         capture_output=True, text=True,
     )
@@ -399,6 +408,50 @@ def test_pairs_kernel_code_runs_of_pairs(kernels, size, n_frames):
     out_p = kernels.piv_pairs_fused_plain(frames, *args)
     assert out_p[0].shape[0] == n_frames - 1 and torch.isnan(out_p[0]).any()
     _compare(out_k, out_p, _gap(frames, *args[:3], 1, out_p[0].shape))
+
+
+# ---------------------------------------------------------------- multipass deformation
+
+
+@pytest.mark.parametrize("case", list(DEFORM_CASES))
+def test_deform_kernel_code_bitwise_plain(kernels, case, monkeypatch):
+    """The deformation kernel's pairs equal the plain version's bit for bit, on the cases held to
+    JAX in tests/test_torch_deform.py (the plain version in blocks where the case says so)."""
+    from pyorc_tpu_torch.ops import multipass
+
+    frames, u, v, rows, cols, block_px = deform_inputs(case)
+    if block_px:
+        monkeypatch.setattr(multipass, "_DEFORM_BLOCK_PX", block_px)
+    f, ut, vt = (torch.as_tensor(x) for x in (frames, u, v))
+    coords = multipass._dense_coords(rows, cols, *frames.shape[1:], f.device)
+    before = kernels.LAUNCHES["deform_pairs"]
+    got = multipass._launch_deform(f, ut, vt, *coords)
+    assert kernels.LAUNCHES["deform_pairs"] == before + 1
+    want = multipass._deformed_pairs(f, ut, vt, rows, cols, coords)
+    assert got.shape == want.shape and np.array_equal(_bits(got), _bits(want))
+
+
+def test_multipass_through_the_deform_kernel_code_is_bitwise_plain(kernels, monkeypatch):
+    """piv_multipass (passes=3) with every deformation launched on the kernel's code gives the plain
+    cascade's u, v, cmax and s2n bit for bit, one launch a deformed pass."""
+    from pyorc_tpu_torch.ops import multipass
+
+    frames = torch.as_tensor(_frames(np.random.default_rng(3), 4, 96, 128))
+    args = ((96, 128), (16, 16), (8, 8), *win.get_field_shape((96, 128), (16, 16), (8, 8)))
+    want = multipass.piv_multipass(frames, *args, passes=3)
+
+    def launched(frames, u, v, rows_prev, cols_prev):
+        multipass._check_deform(frames, u, v, rows_prev, cols_prev)
+        coords = multipass._dense_coords(rows_prev, cols_prev, *frames.shape[1:], frames.device)
+        return multipass._launch_deform(frames, u, v, *coords)
+
+    monkeypatch.setattr(multipass, "deformed_pairs", launched)
+    before = kernels.LAUNCHES["deform_pairs"]
+    got = multipass.piv_multipass(frames, *args, passes=3)
+    assert kernels.LAUNCHES["deform_pairs"] == before + 2
+    assert torch.isfinite(want[0]).all()
+    for a, b in zip(got, want):
+        assert np.array_equal(_bits(a), _bits(b))
 
 
 # ---------------------------------------------------------------- split launches

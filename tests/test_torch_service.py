@@ -557,7 +557,8 @@ def test_cli_refusals(inputs, tmp_path, monkeypatch):
     assert result.exit_code == 0, result.output
     out = tmp_path / "two"
     _, logs, manifest = chip_smoke.multihost_cli(inputs["clip"], inputs["cc"], fn_recipe, out, "cpu")
-    assert [chip_smoke.host_launches(text) for text in logs] == [{"piv_pairs": 0, "piv_ensemble": 0}] * 2  # the CPU
+    no_launch = {"piv_pairs": 0, "piv_ensemble": 0, "deform_pairs": 0}  # every kernel's count; the CPU launches none
+    assert [chip_smoke.host_launches(text) for text in logs] == [no_launch] * 2
     assert [seg["end_frame"] for seg in manifest["segments"].values()] == [5, N]
     want = tmp_path / "jax_manifest"
     want.mkdir()
