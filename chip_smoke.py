@@ -2357,7 +2357,9 @@ def deform_check(frames, u, v, rows_prev, cols_prev, label, device, reps=10, pie
     same inputs, bit for bit, and the ``grid_sample`` yardstick's largest difference from them on the
     first ``piece`` pairs; on the card the kernel alone (``_launch_deform`` on the wrapper's
     coordinates), the plain version and the yardstick ("sampling only") timed, median of ``reps`` (3
-    for the plain version), beside the bound (``roofline.deform_bound``).
+    for the plain version), beside the bound (``roofline.deform_bound``), and the kernel's (tile, pair)s
+    of the checked launch whose predictor could reach past the staged halo (``halo_misses``, of
+    ``tile_pairs``) with its tile, halo and run (``multipass.deform_geometry``).
 
     The plain version runs on ``piece`` pairs at a time (a pair's bits depend on its own frames and
     predictor only), and the kernel's pairs are freed before the timings, so the check holds no more
@@ -2369,7 +2371,10 @@ def deform_check(frames, u, v, rows_prev, cols_prev, label, device, reps=10, pie
     from pyorc_tpu_torch.ops import multipass, roofline
 
     n_pairs = frames.shape[0] - 1
+    on_card = device != "cpu"
+    misses = multipass.deform_halo_misses(frames.device) if on_card else 0
     got = multipass.deformed_pairs(frames, u, v, rows_prev, cols_prev)
+    misses = multipass.deform_halo_misses(frames.device) - misses if on_card else None
     coords = multipass._dense_coords(rows_prev, cols_prev, *frames.shape[1:], frames.device)
     err = 0.0
     for p0 in range(0, n_pairs, piece):
@@ -2381,7 +2386,12 @@ def deform_check(frames, u, v, rows_prev, cols_prev, label, device, reps=10, pie
                                  f"version's (max |d| {float((part - want).abs().max())})")
         err = max(err, float((part - want).abs().max()))
     row = {"n_pairs": n_pairs, "grid": list(u.shape[1:]), "bitwise": True, "max_abs_err": err}
-    if device != "cpu":
+    if on_card:
+        geometry = multipass.deform_geometry()
+        tiles = -(-frames.shape[1] // geometry["tile_rows"]) * -(-frames.shape[2] // geometry["tile_cols"])
+        row.update({"halo_misses": misses, "tile_pairs": tiles * n_pairs,
+                    "tile": [geometry["tile_rows"], geometry["tile_cols"]], "halo": geometry["halo"],
+                    "run": geometry["run"], "blocks_per_sm": geometry["blocks_per_sm"]})
         head = min(piece, n_pairs)
         a, b = _grid_sample_pairs(frames[: head + 1], u[:head], v[:head], rows_prev, cols_prev, coords)()
         row["grid_sample_max_abs_diff"] = max(float((a[:, 0] - got[0 : 2 * head : 2]).abs().max()),
@@ -3122,6 +3132,65 @@ def _card_line():
     ).stdout.strip().splitlines()[0]
 
 
+def sass_loops(sass, kernel="deform_pairs_kernel"):
+    """The innermost loops that store, in the SASS (``cuobjdump -sass`` text) of the functions whose
+    name holds ``kernel``: for each, its instructions, global stores, shared and global loads, and
+    instructions a pair pixel (two stores a pair pixel), beside the function's instruction count.
+
+    A loop is the span from a backward branch's target to the branch; innermost, one that holds no
+    other such span."""
+    out = []
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        instrs, labels, pending = [], {}, []
+        for line in block.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                addr, text = int(m.group(1), 16), m.group(2)
+                labels.update({lab: addr for lab in pending})
+                pending = []
+                instrs.append((addr, re.sub(r"^@!?U?P\w+\s+", "", text).split()[0], text))
+        spans = []
+        for addr, op, text in instrs:
+            if op.startswith("BRA"):
+                target = re.search(r"\((\.L_x_\d+)\)", text)
+                target = labels.get(target.group(1)) if target else int(re.search(r"0x([0-9a-f]+)", text).group(1), 16)
+                if target is not None and target <= addr:
+                    spans.append((target, addr))
+        inner = [a for a in spans if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
+        loops = []
+        for lo, hi in inner:
+            ops = [op for addr, op, _ in instrs if lo <= addr <= hi]
+            stores = sum(op.startswith("STG") for op in ops)
+            if stores:
+                loops.append({"instructions": len(ops), "stores": stores,
+                              "shared_loads": sum(op.startswith("LDS") for op in ops),
+                              "global_loads": sum(op.startswith(("LDG", "LD.")) for op in ops),
+                              "per_pair_pixel": round(2 * len(ops) / stores, 1)})
+        real = [op for _, op, _ in instrs if op != "NOP"]
+        out.append({"function_instructions": len(real), "store_loops": loops})
+    return out
+
+
+def sass_report(lib, kernel="deform_pairs_kernel"):
+    """:func:`sass_loops` of ``kernel`` in the built library ``lib`` (``cuobjdump`` beside ``nvcc``)."""
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    tool = Path(piv_kernels._nvcc()).with_name("cuobjdump")
+    try:
+        proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True)
+    except OSError as err:
+        return {"error": str(err)}
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip()[-500:]}
+    return sass_loops(proc.stdout, kernel)
+
+
 def _print_card(torch):
     print(_card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3174,6 +3243,7 @@ def main(argv) -> int:
     log_file = lib.with_suffix(".log")
     if log_file.exists():
         print(log_file.read_text().strip())
+    print("sass deform_pairs_kernel (innermost storing loops) " + json.dumps(sass_report(lib)), flush=True)
     probe = decoder_probe()
     print("decoder_probe " + json.dumps(probe), flush=True)
 
@@ -3447,8 +3517,10 @@ def main(argv) -> int:
             "ms": deform_main["ms"], "plain_ms": deform_main["plain_ms"], "bound_ms": deform_main["bound_ms"],
             "bound_by": deform_main["bound_by"], "library_ms": deform_main["grid_sample_ms"],
             "library_call": "torch.nn.functional.grid_sample x2, sampling only",
-            "passes": {f"{w_px}px": [{k: r[k] for k in ("grid", "ms", "plain_ms", "bound_ms", "grid_sample_ms")}
+            "passes": {f"{w_px}px": [{k: r[k] for k in ("grid", "ms", "plain_ms", "bound_ms", "grid_sample_ms",
+                                                        "halo_misses", "tile_pairs")}
                                      for r in rows] for w_px, rows in deform_rows.items()},
+            **{k: deform_main[k] for k in ("tile", "halo", "run")},
         },
     ]}
     print(json.dumps(record))

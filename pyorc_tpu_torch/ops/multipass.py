@@ -22,6 +22,10 @@ is :func:`deformed_pairs`: on the GPU one launch of the hand-written CUDA
 kernel ``deform_pairs`` (``csrc/deform.cu``; it replaces the XLA gather
 fusion of the JAX package's ``_deform_stage``), whose pairs equal its plain
 version :func:`_deformed_pairs` bit for bit; on the CPU that plain version.
+The kernel stages each frame once in shared memory for a run of pairs; a
+(tile, pair) whose predictor could take a sample past the staged halo reads
+the frames in device memory instead, with the same bits, and is counted
+(:func:`deform_halo_misses`; the tile, halo and run: :func:`deform_geometry`).
 The median test and the predictor's resampling are plain tensor ops in
 float32.
 
@@ -48,6 +52,10 @@ __all__ = ["piv_multipass", "multipass_window_sizes", "deformed_pairs"]
 # its gathers' int64 index tensors to ~0.5 GB each); the kernel takes a chunk in
 # one launch
 _DEFORM_BLOCK_PX = 1 << 26
+
+# per device, the kernel's count of (tile, pair)s whose predictor could reach past the staged halo
+# (each ran through device memory; same bits): a uint64 the kernel adds to and only the checks read
+_HALO_MISSES: dict = {}
 
 
 def multipass_window_sizes(window_size: Tuple[int, int], passes: int) -> list:
@@ -196,16 +204,48 @@ def _check_deform(frames, u, v, rows_prev, cols_prev):
             raise ValueError(f"deformed_pairs: {name} must be [T - 1, n_rows, n_cols] = {want}, got {tuple(t.shape)}")
 
 
+def _halo_misses(device) -> torch.Tensor:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _HALO_MISSES:
+        _HALO_MISSES[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _HALO_MISSES[device]
+
+
+def deform_halo_misses(device) -> int:
+    """The ``deform_pairs`` kernel's (tile, pair)s on ``device`` so far whose predictor could take a tap
+    past the tile's staged halo, so that they sampled the frames in device memory (a check's count:
+    it waits for the device)."""
+    return int(_halo_misses(device).item())
+
+
+def deform_geometry() -> dict:
+    """The ``deform_pairs`` kernel's tile (rows, columns), halo and run of pairs, its threads, dynamic
+    shared memory and resident blocks per SM on the current device, as the library reports them."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    err = piv_kernels._library().deform_pairs_geometry(out)
+    if err != 0:
+        raise RuntimeError(f"deform_pairs_geometry failed (cudaError {err})")
+    keys = ("tile_rows", "tile_cols", "halo", "run", "threads", "smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, out))
+
+
 def _launch_deform(frames, u, v, rr, cc):
     """One launch of the ``deform_pairs`` kernel: the checked inputs of :func:`deformed_pairs` -> pairs."""
     t, h, w = frames.shape
     n_rows, n_cols = u.shape[1:]
+    if h * w >= 1 << 31:
+        raise ValueError(f"deformed_pairs: a frame of {h} x {w} pixels is past the kernel's 32-bit plane offsets")
     out = torch.empty((2 * (t - 1), h, w), dtype=torch.float32, device=frames.device)
+    misses = _halo_misses(frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     with torch.cuda.device(frames.device):
         err = piv_kernels._library().deform_pairs_launch(
             frames.data_ptr(), t - 1, h, w, u.data_ptr(), v.data_ptr(), n_rows, n_cols, rr.data_ptr(),
-            cc.data_ptr(), out.data_ptr(), stream,
+            cc.data_ptr(), out.data_ptr(), misses.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"deform_pairs: CUDA kernel launch failed (cudaError {err})")

@@ -278,8 +278,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,  # n_rows, n_cols
         ctypes.c_void_p, ctypes.c_void_p,  # rr [H], cc [W]: pixel rows and columns in the grid's index space
         ctypes.c_void_p,  # pairs [2 n_pairs, H, W]
+        ctypes.c_void_p,  # (tile, pair)s past the staged halo: one uint64, added to
         ctypes.c_void_p,  # cudaStream_t
     ]
+    fn.restype = ctypes.c_int
+    fn = lib.deform_pairs_geometry
+    fn.argtypes = [ctypes.c_void_p]  # int[7]
     fn.restype = ctypes.c_int
     return lib
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["PEAK_FP32_FLOPS", "PEAK_HBM_BYTES", "work_bound", "pairs_bound", "ensemble_bound", "deform_bound"]
+__all__ = ["PEAK_FP32_FLOPS", "DEFORM_PEAK_FLOPS", "PEAK_HBM_BYTES", "work_bound", "pairs_bound", "ensemble_bound", "deform_bound"]
 
 # H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -24,11 +24,15 @@ PEAK_HBM_BYTES = 3.35e12
 # floors, two weights and their complements, four weight products, four
 # products, three sums), two halvings and four sample coordinates
 DEFORM_OPS_PER_PIXEL = 4 * 17 + 2 + 4
+# the rate of those operations: PEAK_FP32_FLOPS counts a fused multiply-add as two,
+# and the deformation's bitwise contract with its plain version forbids fusing
+# (every product and sum is rounded on its own), so each is one instruction
+DEFORM_PEAK_FLOPS = PEAK_FP32_FLOPS / 2
 
 
-def _ms(flops, n_bytes):
-    """(bound_ms, "operations" or "bytes") of work of ``flops`` operations moving ``n_bytes``."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+def _ms(flops, n_bytes, peak_flops=PEAK_FP32_FLOPS):
+    """(bound_ms, "operations" or "bytes") of work of ``flops`` operations at ``peak_flops`` moving ``n_bytes``."""
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -69,8 +73,8 @@ def deform_bound(frames, u):
     """Multipass's deformation kernel: ``frames`` [T, H, W] float32 deformed by ``u``, ``v`` [T - 1,
     n_rows, n_cols] into the pairs [2 (T - 1), H, W]. Bytes: the frames, both predictors and the two
     coordinate vectors read once, the pairs written once; operations: DEFORM_OPS_PER_PIXEL a pair
-    pixel. Returns (bound_ms, "operations" or "bytes")."""
+    pixel, unfused (DEFORM_PEAK_FLOPS). Returns (bound_ms, "operations" or "bytes")."""
     t, h, w = frames.shape
     n_pairs = t - 1
     n_bytes = 4 * (t * h * w + 2 * u.numel() + h + w + 2 * n_pairs * h * w)
-    return _ms(DEFORM_OPS_PER_PIXEL * n_pairs * h * w, n_bytes)
+    return _ms(DEFORM_OPS_PER_PIXEL * n_pairs * h * w, n_bytes, DEFORM_PEAK_FLOPS)

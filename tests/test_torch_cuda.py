@@ -209,22 +209,31 @@ def test_copies_are_counted_where_they_happen(cuda):
 # ------------------------------------------------------------ multipass deformation
 # Cases of ops/multipass.deformed_pairs, shared with the CPU tests (tests/test_torch_deform.py against
 # JAX, tests/test_torch_kernel_emulation.py for the kernel's code): (frames, h, w, window, step) of the
-# predictor's grid, the predictor's spread [px], and pixels of one plain block (None: the default).
+# predictor's grid, the predictor's spread [px], pixels of one plain block (None: the default), and
+# cells of the grid's first row set to 12 px, past the kernel's staged halo (4 px: |u| < 7.99).
 DEFORM_CASES = {
-    "odd-non-square": (5, 45, 77, (16, 16), (8, 8), 3.0, None),
-    "one-row-grid": (4, 30, 96, (24, 16), (12, 8), 3.0, None),  # one grid row: _grid_coords' step 1.0
-    "one-column-grid": (4, 96, 30, (16, 24), (8, 12), 3.0, None),
-    "past-all-edges": (4, 40, 60, (16, 16), (8, 8), 50.0, None),  # samples up to ~25 px off every edge
-    "over-one-block": (6, 24, 32, (16, 16), (8, 8), 3.0, 2 * 24 * 32),  # 5 pairs in plain blocks of 2
+    "odd-non-square": (5, 45, 77, (16, 16), (8, 8), 3.0, None, 0),
+    "one-row-grid": (4, 30, 96, (24, 16), (12, 8), 3.0, None, 0),  # one grid row: _grid_coords' step 1.0
+    "one-column-grid": (4, 96, 30, (16, 24), (8, 12), 3.0, None, 0),
+    "past-all-edges": (4, 40, 60, (16, 16), (8, 8), 50.0, None, 0),  # samples up to ~25 px off every edge
+    "over-one-block": (6, 24, 32, (16, 16), (8, 8), 3.0, 2 * 24 * 32, 0),  # 5 pairs in plain blocks of 2
+    "small-spread": (5, 45, 77, (16, 16), (8, 8), 0.5, None, 0),  # every tap within the staged halo
+    # four tiles down, the first past the halo; under 128 px across, where one float32 ulp of a sample
+    # coordinate (JAX's CPU build rounds the dense predictor other than PyTorch, by up to 1 ulp) stays
+    # within the JAX test's 1e-5 * 255 on 0-255 noise
+    "some-cells-past-halo": (4, 100, 120, (16, 16), (8, 8), 0.5, None, 3),
+    "run-remainder": (19, 24, 40, (16, 16), (8, 8), 0.5, None, 0),  # 18 pairs: runs of 12 and of 6
+    "ragged-width": (3, 41, 263, (16, 16), (8, 8), 0.5, None, 0),  # a width past two tiles, not a multiple of 4
+    "below-one-tile": (3, 20, 30, (8, 8), (4, 4), 0.5, None, 0),  # a plane smaller than one tile
 }
-DEFORM_CARD_CASE = (9, 880, 1720, (64, 64), (32, 32), 3.0, None)  # the 1080p slice's projected frames, 64 px pass
+DEFORM_CARD_CASE = (9, 880, 1720, (64, 64), (32, 32), 3.0, None, 0)  # the 1080p slice's projected frames, 64 px pass
 
 
 def deform_inputs(case):
     """(frames [T, H, W], u, v [T - 1, n_rows, n_cols], rows, cols, plain block px) of ``case`` (a key of
     DEFORM_CASES, or DEFORM_CARD_CASE), numpy float32 made from a seed. ``past-all-edges`` takes a
     predictor of alternating sign around its spread, so samples leave the frame on all four sides."""
-    n_frames, h, w, window, step, spread, block_px = DEFORM_CASES.get(case, case)
+    n_frames, h, w, window, step, spread, block_px, far = DEFORM_CASES.get(case, case)
     rng = np.random.default_rng(n_frames * 1000 + h + w)
     frames = rng.uniform(0, 255, (n_frames, h, w)).astype(np.float32)
     cols, rows = win.get_rect_coordinates((h, w), window, window, (window[0] - step[0], window[1] - step[1]))
@@ -234,7 +243,21 @@ def deform_inputs(case):
         u, v = (spread * signs * rng.uniform(0.8, 1.2, shape) * s for s in (1, -1))
     else:
         u, v = rng.normal(2.3, spread, shape), rng.normal(-1.4, spread, shape)
+    u[:, 0, :far] = 12.0
     return frames, u.astype(np.float32), v.astype(np.float32), rows, cols, block_px
+
+
+def check_halo_misses(case, misses, geometry):
+    """Assert the kernel's count of (tile, pair)s past its staged halo in one launch of ``case``: none on
+    a small spread, all past every edge, some where a few cells pass it (a spread of 3 px: not asserted)."""
+    n_frames, h, w, _, _, spread, _, far = DEFORM_CASES[case]
+    total = -(-h // geometry["tile_rows"]) * -(-w // geometry["tile_cols"]) * (n_frames - 1)
+    if spread > 10:
+        assert misses == total
+    elif far:
+        assert 0 < misses < total
+    elif spread < 1:
+        assert misses == 0
 
 
 def test_deform_kernel_bitwise_plain_at_1080p(cuda):
@@ -252,6 +275,23 @@ def test_deform_kernel_bitwise_plain_at_1080p(cuda):
     want = multipass._deformed_pairs(f, ut, vt, rows, cols, coords)
     torch.cuda.synchronize()
     assert got.shape == (16, 880, 1720)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", list(DEFORM_CASES))
+def test_deform_kernel_cases_bitwise_plain(cuda, case):
+    """Every shared case on the card: the kernel's pairs bit for bit the plain version's, one launch, and
+    the (tile, pair)s past the staged halo counted as under the g++ emulation."""
+    from pyorc_tpu_torch.ops import multipass
+
+    frames, u, v, rows, cols, _ = deform_inputs(case)
+    f, ut, vt = (torch.as_tensor(x, device=cuda) for x in (frames, u, v))
+    before, misses = piv_kernels.LAUNCHES["deform_pairs"], multipass.deform_halo_misses(cuda)
+    got = multipass.deformed_pairs(f, ut, vt, rows, cols)
+    assert piv_kernels.LAUNCHES["deform_pairs"] == before + 1
+    check_halo_misses(case, multipass.deform_halo_misses(cuda) - misses, multipass.deform_geometry())
+    coords = multipass._dense_coords(rows, cols, *frames.shape[1:], cuda)
+    want = multipass._deformed_pairs(f, ut, vt, rows, cols, coords)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

@@ -117,3 +117,57 @@ def test_chip_smoke_deform_checks_on_cpu():
     frames, u, v, rows, cols, _ = deform_inputs("one-row-grid")
     row = chip_smoke.deform_check(*(torch.as_tensor(x) for x in (frames, u, v)), rows, cols, "one row", "cpu")
     assert row["bitwise"] and row["max_abs_err"] == 0.0 and row["grid"] == [1, 11] and row["bound_by"] == "bytes"
+
+
+def test_deform_bound_at_1080p_is_set_by_bytes():
+    """The deformation's yardstick on the 1080p slice's shape (126 x 880 x 1720, the predictor on the
+    64 px grid at 32 px steps), from shapes alone: 0.680 ms, set by bytes (2.28 GB at 3.35 TB/s); its
+    float32 operations, unfused (the bitwise contract forbids FMA), take 0.418 ms at half the fp32 peak."""
+    from pyorc_tpu_torch.ops import roofline
+
+    n_rows, n_cols = win.get_field_shape((880, 1720), (64, 64), (32, 32))
+    frames = torch.empty((126, 880, 1720), device="meta")
+    u = torch.empty((125, n_rows, n_cols), device="meta")
+    bound_ms, bound_by = roofline.deform_bound(frames, u)
+    assert (n_rows, n_cols) == (26, 52) and bound_by == "bytes"
+    assert bound_ms == pytest.approx(0.6799, abs=1e-4)
+    assert roofline.DEFORM_PEAK_FLOPS == roofline.PEAK_FP32_FLOPS / 2
+    ops_ms = 1e3 * roofline.DEFORM_OPS_PER_PIXEL * 125 * 880 * 1720 / roofline.DEFORM_PEAK_FLOPS
+    assert ops_ms == pytest.approx(0.4179, abs=1e-4) and ops_ms < bound_ms
+
+
+SASS_LISTING = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_119deform_pairs_kernelEPKfiiiS1_S1_iiS1_S1_PfPy
+	.headerflags	@"EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                         /* 0x00000a00ff017b82 */
+                                                                                  /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                             /* 0x0000000000007919 */
+        /*0020*/                   LDS R2, [R3] ;                                 /* 0x00000a00ff017b82 */
+.L_x_0:
+        /*0030*/                   FADD R2, R2, R3 ;                              /* 0x00000a00ff017b82 */
+        /*0040*/                   LDS R4, [R3+0x4] ;                             /* 0x00000a00ff017b82 */
+        /*0050*/                   STG.E desc[UR4][R4.64], R2 ;                   /* 0x00000a00ff017b82 */
+        /*0060*/                   STG.E desc[UR4][R6.64], R2 ;                   /* 0x00000a00ff017b82 */
+        /*0070*/              @!P0 BRA `(.L_x_0) ;                                /* 0x00000a00ff017b82 */
+        /*0080*/                   LDG.E R5, desc[UR4][R8.64] ;                   /* 0x00000a00ff017b82 */
+        /*0090*/                   STG.E desc[UR4][R4.64], R5 ;                   /* 0x00000a00ff017b82 */
+        /*00a0*/              @P1 BRA 0x20 ;                                      /* 0x00000a00ff017b82 */
+        /*00b0*/                   EXIT ;                                         /* 0x00000a00ff017b82 */
+        /*00c0*/                   BRA 0xc0;                                      /* 0x00000a00ff017b82 */
+        /*00d0*/                   NOP;                                           /* 0x00000a00ff017b82 */
+		Function : _Z5otherPf
+        /*0000*/                   STG.E desc[UR4][R4.64], R2 ;                   /* 0x00000a00ff017b82 */
+        /*0010*/                   BRA 0x0;                                       /* 0x00000a00ff017b82 */
+"""
+
+
+def test_chip_smoke_sass_loops():
+    """chip_smoke's SASS count: only the named kernel; loops from backward branches to labels or
+    addresses, the innermost storing one (the outer loop holds it; the self-branch at the end stores
+    nothing), its stores, shared and global loads, and instructions a pair pixel (two stores each)."""
+    import chip_smoke
+
+    (got,) = chip_smoke.sass_loops(SASS_LISTING)
+    assert got == {"function_instructions": 13, "store_loops": [
+        {"instructions": 5, "stores": 2, "shared_loads": 1, "global_loads": 0, "per_pair_pixel": 5.0}]}

@@ -25,7 +25,9 @@ import torch
 from pyorc_tpu_torch.ops import piv_kernels
 from pyorc_tpu_torch.ops import windows as win
 
-from test_torch_cuda import DEFORM_CASES, _compare, _compare_ensemble, _frames, _gap, deform_inputs
+from test_torch_cuda import (
+    DEFORM_CASES, _compare, _compare_ensemble, _frames, _gap, check_halo_misses, deform_inputs,
+)
 
 CSRC = Path(piv_kernels.__file__).resolve().parent.parent / "csrc"
 
@@ -33,10 +35,13 @@ CSRC = Path(piv_kernels.__file__).resolve().parent.parent / "csrc"
 CUDA_RUNTIME_SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <deque>
 #include <limits>
 #include <memory>
 #include <thread>
@@ -51,18 +56,33 @@ CUDA_RUNTIME_SHIM = r"""
 using std::max;
 using std::min;
 
+struct alignas(8) float2 {
+    float x, y;
+};
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
 struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 typedef int cudaError_t;
-const int cudaSuccess = 0;
+const int cudaSuccess = 0, cudaErrorInvalidConfiguration = 9;
 typedef struct CUstream_st* cudaStream_t;
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
 const size_t emu_max_smem = 232448;  // a Hopper block's dynamic shared memory limit
+const size_t emu_sm_smem = 233472;   // an SM's shared memory, 1 KB of it reserved a block
 inline int emu_error = 0;
 template <class F>
-inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) { return bytes > (int)emu_max_smem ? 1 : 0; }
+inline cudaError_t cudaFuncSetAttribute(F, int attr, int value) {
+    return attr == cudaFuncAttributeMaxDynamicSharedMemorySize && value > (int)emu_max_smem ? 1 : 0;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads, size_t smem) {
+    *n = (int)std::min<size_t>(2048 / threads, emu_sm_smem / (smem + 1024));
+    return 0;
+}
 inline cudaError_t cudaGetLastError() { int e = emu_error; emu_error = 0; return e; }
 
 inline thread_local dim3 threadIdx, blockIdx;
@@ -74,6 +94,27 @@ inline std::vector<float> emu_lanes_f;
 inline std::vector<int> emu_lanes_i;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// __syncthreads_or: call k ORs into accumulator k % 3 and reads it after the
+// barrier; thread 0 clears accumulator (k + 2) % 3, whose readers (call k - 1)
+// are past this barrier and whose writers (call k + 2) are behind the next
+inline std::atomic<int> emu_or[3];
+inline thread_local unsigned emu_or_calls = 0;
+inline int __syncthreads_or(int p) {
+    const unsigned k = emu_or_calls++;
+    if (p) emu_or[k % 3] |= 1;
+    emu_block_barrier->arrive_and_wait();
+    const int r = emu_or[k % 3].load();
+    if (threadIdx.x == 0) emu_or[(k + 2) % 3] = 0;
+    return r;
+}
+
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) { unsigned i; std::memcpy(&i, &f, 4); return i; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+    return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 
 // IEEE float32 operations that the card's compiler never contracts; g++ runs
 // with -ffp-contract=off, so neither does the host
@@ -95,6 +136,42 @@ inline T emu_shfl_xor(std::vector<T>& lanes, T v, int o) {
 inline float __shfl_xor_sync(unsigned, float v, int o) { return emu_shfl_xor(emu_lanes_f, v, o); }
 inline int __shfl_xor_sync(unsigned, int v, int o) { return emu_shfl_xor(emu_lanes_i, v, o); }
 
+// cp.async as __pipeline_memcpy_async / commit / wait_prior: each thread's
+// copies are held in their commit groups and made only when a wait releases
+// the group, so a staged read before its wait sees stale data (or the NaN
+// that shared memory starts as); a copy must be 4, 8 or 16 bytes, aligned to
+// its size, into shared memory
+struct EmuCopy {
+    void* dst;
+    const void* src;
+    size_t n;
+};
+inline thread_local std::vector<EmuCopy> emu_open_group;
+inline thread_local std::deque<std::vector<EmuCopy>> emu_groups;
+inline void emu_pipeline_reset() {
+    emu_open_group.clear();
+    emu_groups.clear();
+}
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
+    const auto d = reinterpret_cast<uintptr_t>(dst), s = reinterpret_cast<uintptr_t>(src);
+    const auto lo = reinterpret_cast<uintptr_t>(emu_smem.data());
+    if ((n != 4 && n != 8 && n != 16) || d % n || s % n || d < lo || d + n > lo + emu_smem.size() * sizeof(float)) {
+        emu_error = 10;
+        return;
+    }
+    emu_open_group.push_back({dst, src, n});
+}
+inline void __pipeline_commit() {
+    emu_groups.push_back(std::move(emu_open_group));
+    emu_open_group.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+    while (emu_groups.size() > prior) {
+        for (const EmuCopy& c : emu_groups.front()) std::memcpy(c.dst, c.src, c.n);
+        emu_groups.pop_front();
+    }
+}
+
 // Runs kernel() for every block of the grid, one host thread per CUDA thread;
 // shared memory starts as NaN, so a read before a write shows in the results.
 template <class F>
@@ -109,13 +186,16 @@ void emu_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F kernel) {
     for (int w = 0; w < threads / 32; ++w) emu_warp_barriers.emplace_back(new std::barrier<>(32));
     emu_lanes_f.assign(threads, 0.f);
     emu_lanes_i.assign(threads, 0);
+    for (auto& a : emu_or) a = 0;
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t) {
         pool.emplace_back([&, t] {
             threadIdx = dim3(t);
+            emu_or_calls = 0;
             for (unsigned by = 0; by < grid.y; ++by)
                 for (unsigned bx = 0; bx < grid.x; ++bx) {
                     blockIdx = dim3(bx, by);
+                    emu_pipeline_reset();
                     kernel();
                     block_barrier.arrive_and_wait();
                 }
@@ -133,12 +213,15 @@ def emulated_library(tmp_path_factory):
         pytest.skip("needs g++ to compile the CUDA sources as host C++")
     out = tmp_path_factory.mktemp("kernel_emulation")
     (out / "cuda_runtime.h").write_text(CUDA_RUNTIME_SHIM)
-    shared = ("extern __shared__ float smem[];", "float* smem = emu_smem.data();")
+    (out / "cuda_pipeline.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
+    def shared(text):
+        return re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float smem\[\];", "float* smem = emu_smem.data();", text)
+
     for header in CSRC.glob("*.cuh"):
-        (out / header.name).write_text(header.read_text().replace(*shared))
+        (out / header.name).write_text(shared(header.read_text()))
     sources = []
     for src in sorted(CSRC.glob("*.cu")):
-        text = src.read_text().replace(*shared)
+        text = shared(src.read_text())
         # kernel<T><<<grid, block, smem, stream>>>(args); -> emu_launch(grid, block, smem, stream, [&] { kernel<T>(args); });
         text, n = re.subn(
             r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", text, flags=re.S
@@ -416,7 +499,9 @@ def test_pairs_kernel_code_runs_of_pairs(kernels, size, n_frames):
 @pytest.mark.parametrize("case", list(DEFORM_CASES))
 def test_deform_kernel_code_bitwise_plain(kernels, case, monkeypatch):
     """The deformation kernel's pairs equal the plain version's bit for bit, on the cases held to
-    JAX in tests/test_torch_deform.py (the plain version in blocks where the case says so)."""
+    JAX in tests/test_torch_deform.py (the plain version in blocks where the case says so); the
+    (tile, pair)s whose predictor could reach past the staged halo are counted: none on a small
+    spread, all past every edge, some where a few cells are past it (one launch on both paths)."""
     from pyorc_tpu_torch.ops import multipass
 
     frames, u, v, rows, cols, block_px = deform_inputs(case)
@@ -424,11 +509,22 @@ def test_deform_kernel_code_bitwise_plain(kernels, case, monkeypatch):
         monkeypatch.setattr(multipass, "_DEFORM_BLOCK_PX", block_px)
     f, ut, vt = (torch.as_tensor(x) for x in (frames, u, v))
     coords = multipass._dense_coords(rows, cols, *frames.shape[1:], f.device)
-    before = kernels.LAUNCHES["deform_pairs"]
+    before, misses = kernels.LAUNCHES["deform_pairs"], multipass.deform_halo_misses("cpu")
     got = multipass._launch_deform(f, ut, vt, *coords)
     assert kernels.LAUNCHES["deform_pairs"] == before + 1
+    check_halo_misses(case, multipass.deform_halo_misses("cpu") - misses, multipass.deform_geometry())
     want = multipass._deformed_pairs(f, ut, vt, rows, cols, coords)
     assert got.shape == want.shape and np.array_equal(_bits(got), _bits(want))
+
+
+def test_deform_kernel_code_geometry(kernels):
+    """The kernel reports its tile, halo, run and shared memory; three blocks fit an SM's shared memory."""
+    from pyorc_tpu_torch.ops import multipass
+
+    geometry = multipass.deform_geometry()
+    assert geometry == {"tile_rows": 32, "tile_cols": 128, "halo": 4, "run": 12, "threads": 256,
+                        "smem_bytes": geometry["smem_bytes"], "blocks_per_sm": 3}
+    assert 3 * (geometry["smem_bytes"] + 1024) <= 233472
 
 
 def test_multipass_through_the_deform_kernel_code_is_bitwise_plain(kernels, monkeypatch):
