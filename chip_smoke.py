@@ -2057,7 +2057,7 @@ def host_stages_phase(pivs, cc, device, cameras=None, aoi_px=100):
             "geul 1920x1080": (geul_camera_config(), GEUL_H),
         }
     cuda = torch.device(device).type == "cuda"
-    out = {"maps": {}, "transect": {}}
+    out = {"host_blas_rule": cam.host_blas_rule(), "maps": {}, "transect": {}}
     for name, (cam_cc, h_a) in cameras.items():
         x, y, z = ortho_grid(cam_cc, h_a)
         walls = []
@@ -2310,6 +2310,19 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
                      enumerate(calls["deform"])]
     out["deform_launches"] = launches
     print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out)}", flush=True)
+    return out
+
+
+def deform_pass_times(mp_main):
+    """{cascade: [{pass, grid, ms, bound_ms, bound_by, bound_share, halo_misses}]} from the rows of
+    :func:`multipass_main_path_check` (``ms`` only where the card timed the kernel)."""
+    out = {}
+    for w_px, res in mp_main.items():
+        out[f"{w_px}px"] = [
+            {"pass": k + 2, "grid": r["grid"], "ms": r.get("ms"), "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "bound_share": r["bound_ms"] / r["ms"] if r.get("ms") else None, "halo_misses": r.get("halo_misses")}
+            for k, r in enumerate(res["deform"])
+        ]
     return out
 
 
@@ -3369,8 +3382,13 @@ def main(argv) -> int:
     print(f"multipass engine chunks (get_piv(passes=3) at chunksize {MULTIPASS_CHUNKS} against one chunk, bitwise): "
           f"wall {time.perf_counter() - t0:.3f} s; " + json.dumps(mp_chunks), flush=True)
     mp_main = {w_px: multipass_main_path_check(proj, mp_pivs[w_px], device, w_px) for w_px in mp_pivs}
+    # the checks' plain deformations leave their float64 temporaries in PyTorch's cache, which mem_get_info
+    # counts as used: hand them back, so that later phases' automatic chunk plans do not read the checks
+    torch.cuda.empty_cache()
     print(f"deformation kernel against its plain version, each deformed pass ({_card_line()}): "
           + json.dumps({w_px: out["deform"] for w_px, out in mp_main.items()}), flush=True)
+    print(f"deform_pairs a deformed pass of the 1080p slice, kernel ms beside its bound ({_card_line()}): "
+          + json.dumps(deform_pass_times(mp_main)), flush=True)
     mp_piv32 = mp_pivs[32]  # for step 5g
     del mp_pivs
 

@@ -16,23 +16,27 @@
 // `bilinear` is ops/interp.py::map_linear (map_coordinates(order=1,
 // mode="nearest")): weights from the unclamped floor, the two indices of each
 // axis clamped to the edge on their own, the four products summed in
-// map_linear's order. Every operation is one IEEE float32 operation, written
-// with __fmul_rn / __fadd_rn / __fsub_rn, which nvcc never contracts into a
-// fused multiply-add; so the pairs equal the plain version's on the same card
-// bit for bit. rr [H] and cc [W] (each pixel row and column in the window
-// grid's index space) come from the caller, the same tensors the plain
-// version reads: the kernel never recomputes them (a CUDA tensor divided by a
-// Python scalar is a reciprocal multiply, other last bits than a division).
+// map_linear's rounding orders, as XLA's CPU build compiles `_deform_stage`:
+// the predictor's sums as chain A, fma(w00, t00, w01 t01) -> fma(w10, t10, .)
+// -> fma(w11, t11, .), the frame samples' as chain B, fma(w01, t01, w00 t00)
+// -> the same two. Every operation is written with __fmul_rn / __fadd_rn /
+// __fsub_rn / __fmaf_rn, which nvcc neither contracts nor splits; so the pairs
+// equal the plain version's on the same card bit for bit, and both equal JAX's.
+// rr [H] and cc [W] (each pixel row and column in the window grid's index
+// space, multiplied by the step's float32 reciprocal as XLA's CPU build
+// rewrites JAX's division) come from the caller, the same tensors the plain
+// version reads: the kernel never recomputes them.
 //
 // What bounds it. The work must move ~12 bytes a pair pixel (two floats
-// written, about one frame value read), against ~74 float32 operations that
-// the bitwise contract keeps unfused. A first design (a thread a pixel, every
-// tap through the read-only cache, every bilinear sample recomputed from its
-// coordinates) issued ~220 instructions a pair pixel and ran at ~41 % of the
-// bytes bound: issue and load latency held it, not bytes. This design takes
-// out of the pair loop what no pair changes, and reads each frame from device
-// memory once for a run of pairs, which leaves ~97 instructions a pair pixel
-// and makes bytes the bound again: the frames it reads again for the halos
+// written, about one frame value read), against ~62 float32 instructions (12
+// of them fused multiply-adds) in the orders above. A first design (a thread a
+// pixel, every tap through the read-only cache, every bilinear sample
+// recomputed from its coordinates) issued ~220 instructions a pair pixel and
+// ran at ~41 % of the bytes bound: issue and load latency held it, not bytes.
+// This design takes out of the pair loop what no pair changes, and reads each
+// frame from device memory once for a run of pairs, which leaves ~85
+// instructions a pair pixel (97 before the sums were fused) and makes bytes
+// the bound again: the frames it reads again for the halos
 // and the runs' shared ends (~1.44x the frames, ~1.15x the bound's bytes in
 // all) at close to the card's sustained memory rate.
 //
@@ -114,10 +118,9 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ f, int h, in
     const int c_lo = max(ci, 0), c_hi = min(ci + 1, w - 1);
     const float* lo = f + r_lo * w;
     const float* hi = f + r_hi * w;
-    float out = __fmul_rn(__fmul_rn(wr0, wc0), __ldg(lo + c_lo));
-    out = __fadd_rn(out, __fmul_rn(__fmul_rn(wr0, wc1), __ldg(lo + c_hi)));
-    out = __fadd_rn(out, __fmul_rn(__fmul_rn(wr1, wc0), __ldg(hi + c_lo)));
-    return __fadd_rn(out, __fmul_rn(__fmul_rn(wr1, wc1), __ldg(hi + c_hi)));
+    float out = __fmaf_rn(__fmul_rn(wr0, wc1), __ldg(lo + c_hi), __fmul_rn(__fmul_rn(wr0, wc0), __ldg(lo + c_lo)));
+    out = __fmaf_rn(__fmul_rn(wr1, wc0), __ldg(hi + c_lo), out);
+    return __fmaf_rn(__fmul_rn(wr1, wc1), __ldg(hi + c_hi), out);
 }
 
 // map_linear at (r, c) of a frame staged at `s` + (the staged index): `at0` is the staged index of
@@ -129,10 +132,9 @@ __device__ __forceinline__ float staged_bilinear(const float* __restrict__ s, un
     const float wr0 = __fsub_rn(1.f, wr1), wc0 = __fsub_rn(1.f, wc1);
     const unsigned at = __float_as_uint(__fadd_rn(r0, kMagic)) * kPitch + __float_as_uint(__fadd_rn(c0, kMagic)) - at0;
     const float* t = s + at;
-    float out = __fmul_rn(__fmul_rn(wr0, wc0), t[0]);
-    out = __fadd_rn(out, __fmul_rn(__fmul_rn(wr0, wc1), t[1]));
-    out = __fadd_rn(out, __fmul_rn(__fmul_rn(wr1, wc0), t[kPitch]));
-    return __fadd_rn(out, __fmul_rn(__fmul_rn(wr1, wc1), t[kPitch + 1]));
+    float out = __fmaf_rn(__fmul_rn(wr0, wc1), t[1], __fmul_rn(__fmul_rn(wr0, wc0), t[0]));
+    out = __fmaf_rn(__fmul_rn(wr1, wc0), t[kPitch], out);
+    return __fmaf_rn(__fmul_rn(wr1, wc1), t[kPitch + 1], out);
 }
 
 // bilinear's terms of one axis of the predictor grid (n cells) at r: the two weights and the floor's
@@ -273,14 +275,12 @@ __global__ void __launch_bounds__(kThreads, 3) deform_pairs_kernel(
                 const float2 t00 = t[0], t01 = t[1], t10 = t[kCellPitch], t11 = t[kCellPitch + 1];
                 const float fy = rt.z;
                 // half the dense predictor: dr = -v rows down, dc = u columns right
-                float hr = __fmul_rn(w00, -t00.y);
-                hr = __fadd_rn(hr, __fmul_rn(w01, -t01.y));
-                hr = __fadd_rn(hr, __fmul_rn(w10, -t10.y));
-                hr = __fmul_rn(__fadd_rn(hr, __fmul_rn(w11, -t11.y)), 0.5f);
-                float hc = __fmul_rn(w00, t00.x);
-                hc = __fadd_rn(hc, __fmul_rn(w01, t01.x));
-                hc = __fadd_rn(hc, __fmul_rn(w10, t10.x));
-                hc = __fmul_rn(__fadd_rn(hc, __fmul_rn(w11, t11.x)), 0.5f);
+                float hr = __fmaf_rn(w00, -t00.y, __fmul_rn(w01, -t01.y));
+                hr = __fmaf_rn(w10, -t10.y, hr);
+                hr = __fmul_rn(__fmaf_rn(w11, -t11.y, hr), 0.5f);
+                float hc = __fmaf_rn(w00, t00.x, __fmul_rn(w01, t01.x));
+                hc = __fmaf_rn(w10, t10.x, hc);
+                hc = __fmul_rn(__fmaf_rn(w11, t11.x, hc), 0.5f);
                 *oa = staged_bilinear(ring, at_a, __fsub_rn(fy, hr), __fsub_rn(fx, hc));
                 *ob = staged_bilinear(ring, at_b, __fadd_rn(fy, hr), __fadd_rn(fx, hc));
             }
@@ -296,14 +296,12 @@ __global__ void __launch_bounds__(kThreads, 3) deform_pairs_kernel(
                 const float w00 = __fmul_rn(wr0, col.w0), w01 = __fmul_rn(wr0, col.w1);
                 const float w10 = __fmul_rn(wr1, col.w0), w11 = __fmul_rn(wr1, col.w1);
                 const int lo = max(cell_i[ty], 0) * nc, hi = min(cell_i[ty] + 1, nr - 1) * nc;
-                float hr = __fmul_rn(w00, -__ldg(vp + lo + c_lo));
-                hr = __fadd_rn(hr, __fmul_rn(w01, -__ldg(vp + lo + c_hi)));
-                hr = __fadd_rn(hr, __fmul_rn(w10, -__ldg(vp + hi + c_lo)));
-                hr = __fmul_rn(__fadd_rn(hr, __fmul_rn(w11, -__ldg(vp + hi + c_hi))), 0.5f);
-                float hc = __fmul_rn(w00, __ldg(up + lo + c_lo));
-                hc = __fadd_rn(hc, __fmul_rn(w01, __ldg(up + lo + c_hi)));
-                hc = __fadd_rn(hc, __fmul_rn(w10, __ldg(up + hi + c_lo)));
-                hc = __fmul_rn(__fadd_rn(hc, __fmul_rn(w11, __ldg(up + hi + c_hi))), 0.5f);
+                float hr = __fmaf_rn(w00, -__ldg(vp + lo + c_lo), __fmul_rn(w01, -__ldg(vp + lo + c_hi)));
+                hr = __fmaf_rn(w10, -__ldg(vp + hi + c_lo), hr);
+                hr = __fmul_rn(__fmaf_rn(w11, -__ldg(vp + hi + c_hi), hr), 0.5f);
+                float hc = __fmaf_rn(w00, __ldg(up + lo + c_lo), __fmul_rn(w01, __ldg(up + lo + c_hi)));
+                hc = __fmaf_rn(w10, __ldg(up + hi + c_lo), hc);
+                hc = __fmul_rn(__fmaf_rn(w11, __ldg(up + hi + c_hi), hc), 0.5f);
                 *oa = bilinear(fa, H, W, __fsub_rn(fy, hr), __fsub_rn(fx, hc));
                 *ob = bilinear(fa + plane, H, W, __fadd_rn(fy, hr), __fadd_rn(fx, hc));
             }

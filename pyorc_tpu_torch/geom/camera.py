@@ -12,10 +12,12 @@ computed once per video, then consumed by the device kernels.
 The ``*_tensor`` functions are the per-point functions on float64 tensors on
 their device (the ortho index maps are built on the card), bit for bit the
 host's values: each expression is written in the host function's evaluation
-order. numpy's ``@`` of an (N, 3) by a 3x3 array runs through BLAS, which on
-FMA hardware rounds each dot product as a chain of fused multiply-adds over
-k = 0, 1, 2; the twins give that chain's rounding with plain float64
-operations (:func:`_fma`), never a matmul or a fused op of their own.
+order. numpy's ``@`` of an (N, 3) by a 3x3 array (:func:`_points_times`)
+runs through BLAS, which on FMA hardware rounds each dot product as a chain
+of fused multiply-adds over k = 0, 1, 2, and elsewhere rounds each product
+and sum; :func:`host_blas_rule` finds which at first use, and the twins give
+that rounding with plain float64 operations (the chain through
+:func:`pyorc_tpu_torch._fma.fma`), never a matmul or a fused op of their own.
 Rotations, ``K`` and homographies are still made on the host and enter as
 Python floats. A tensor is divided only by a tensor on its own device: CUDA
 divides by a Python scalar as a multiply by its reciprocal, which may round
@@ -30,11 +32,15 @@ unchanged):
 
 from __future__ import annotations
 
-import math
+import logging
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .._fma import fma as _fma
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "rodrigues",
@@ -171,7 +177,7 @@ def project_points(
     pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
     R = rodrigues(rvec)
     t = np.asarray(tvec, dtype=np.float64).reshape(3)
-    pc = pts @ R.T + t
+    pc = _points_times(pts, R) + t
     z = pc[:, 2]
     with np.errstate(divide="ignore", invalid="ignore"):
         xn = pc[:, 0] / z
@@ -234,7 +240,7 @@ def homography_from_pose(rvec, tvec, camera_matrix, z: float = 0.0, reverse: boo
 def perspective_transform(points, M) -> np.ndarray:
     """Apply 3x3 homography to (N,2) points."""
     pts = np.asarray(points, dtype=np.float64).reshape(-1, 2)
-    h = np.concatenate([pts, np.ones((len(pts), 1))], axis=1) @ np.asarray(M, dtype=np.float64).T
+    h = _points_times(np.concatenate([pts, np.ones((len(pts), 1))], axis=1), np.asarray(M, dtype=np.float64))
     return h[:, :2] / h[:, 2:3]
 
 
@@ -290,43 +296,44 @@ def _floats(a) -> list:
     return [float(v) for v in np.asarray(a, dtype=np.float64).ravel()]
 
 
-_SPLIT = 134217729.0  # 2**27 + 1, Veltkamp's constant: splits a float64 into two 26-bit halves
+def _points_times(pts: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """The host's product of points (N, 3) by a 3x3 matrix, ``pts @ m.T``, through numpy's BLAS."""
+    return pts @ m.T
 
 
-def _split(a):
-    t = a * _SPLIT
-    hi = t - (t - a)
-    return hi, a - hi
+_BLAS_RULE: Optional[str] = None  # host_blas_rule's answer, found at first use
 
 
-def _two_sum(a, b):
-    """(s, t) with s = a + b rounded and s + t = a + b exactly (Knuth)."""
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def _fma(a, b, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once, as a fused multiply-add rounds it, from plain float64 operations.
-
-    Boldo and Melquiond's emulated FMA: the product exactly as ``p + e``
-    (Dekker), ``c + p`` exactly as ``s + t``, ``t + e`` rounded to odd, then
-    one rounding of ``s`` plus that. Exact for finite values whose product
-    neither overflows nor underflows.
-    """
-    p = a * b
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    s, t = _two_sum(c, p)
-    v, w = _two_sum(t, e)
-    even = (v.view(torch.int64) & 1) == 0
-    v = torch.where((w != 0) & even, torch.nextafter(v, torch.full_like(v, math.inf).copysign(w)), v)
-    return s + v
+def host_blas_rule() -> str:
+    """How the host's :func:`_points_times` rounds a term ``x m0 + y m1 + z m2``: ``"fma"`` (a chain
+    of fused multiply-adds over k = 0, 1, 2, as an FMA BLAS does) or ``"plain"`` (each product and
+    sum rounded). Found once, from a near-tie: with ``a = 1 + 2**-27``, ``a * a`` rounds off
+    ``2**-54``, which the chain ``fma(a, -a, a * a)`` keeps and plain products cancel. The probe
+    takes (64, 3) points, the matrix-by-matrix path of the maps' products (numpy sends one row
+    through another BLAS routine). Logged; an answer that is neither is logged as a warning and the
+    twins keep the chain."""
+    global _BLAS_RULE
+    if _BLAS_RULE is None:
+        a = 1.0 + 2.0**-27
+        m = np.array([[a, -a, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]])
+        got = set(_points_times(np.tile([a, a, 0.0], (64, 1)), m)[:, 0].tolist())
+        rule = {(-(2.0**-54),): "fma", (0.0,): "plain"}.get(tuple(got))
+        if rule is None:
+            logger.warning("numpy's 3x3 products round the near-tie probe to %s, neither an FMA chain nor "
+                           "plain products: the ortho maps built as tensors may differ from the host's in "
+                           "their last bits (the twins keep the FMA chain)", sorted(got))
+            rule = "fma"
+        else:
+            logger.info("numpy's 3x3 products round as %s: the ortho-map twins follow", rule)
+        _BLAS_RULE = rule
+    return _BLAS_RULE
 
 
 def _dot3(x, y, z, r) -> torch.Tensor:
-    """``x r[0] + y r[1] + z r[2]`` rounded as BLAS's FMA chain rounds one term of numpy's ``@``."""
+    """``x r[0] + y r[1] + z r[2]`` rounded as one term of the host's :func:`_points_times`, by the
+    rule :func:`host_blas_rule` found."""
+    if host_blas_rule() == "plain":
+        return (x * r[0] + y * r[1]) + z * r[2]
     return _fma(z, r[2], _fma(y, r[1], x * r[0]))
 
 

@@ -27,7 +27,12 @@ The kernel stages each frame once in shared memory for a run of pairs; a
 the frames in device memory instead, with the same bits, and is counted
 (:func:`deform_halo_misses`; the tile, halo and run: :func:`deform_geometry`).
 The median test and the predictor's resampling are plain tensor ops in
-float32.
+float32. The deformation rounds as XLA's CPU build compiles the JAX
+package's jitted ``_deform_stage``, so that its pairs are JAX's bit for bit:
+the dense predictor's coordinates are multiplied by the step's float32
+reciprocal (:func:`_dense_coords`), and its bilinear sums and the frame
+samples' are chains of fused multiply-adds, A and B of
+:func:`~pyorc_tpu_torch.ops.interp.map_linear`.
 
 ``map_coordinates(order=1, mode="nearest")`` of the JAX package is
 :func:`pyorc_tpu_torch.ops.interp.map_linear`. ``jnp.nanmedian`` averages the two middle
@@ -49,8 +54,8 @@ from .interp import map_linear
 __all__ = ["piv_multipass", "multipass_window_sizes", "deformed_pairs"]
 
 # pixels of one block of pairs that the plain version deforms at a time (bounds
-# its gathers' int64 index tensors to ~0.5 GB each); the kernel takes a chunk in
-# one launch
+# its gathers' int64 index tensors and its FMAs' float64 temporaries to ~0.5 GB
+# each); the kernel takes a chunk in one launch
 _DEFORM_BLOCK_PX = 1 << 26
 
 # per device, the kernel's count of (tile, pair)s whose predictor could reach past the staged halo
@@ -119,16 +124,36 @@ def _median_validate(u: torch.Tensor, v: torch.Tensor, eps: float = 0.1, thresh:
     return fix(u), fix(v)
 
 
+def _step(src: np.ndarray) -> np.float32:
+    return np.float32(float(src[1] - src[0]) if len(src) > 1 else 1.0)
+
+
 def _grid_coords(src: np.ndarray, dst, device) -> torch.Tensor:
-    """Positions ``dst`` (pixels) in the index space of the window centres ``src``, clipped to it."""
-    step = float(src[1] - src[0]) if len(src) > 1 else 1.0
-    pos = (torch.as_tensor(dst, dtype=torch.float32, device=device) - float(src[0])) / step
-    return torch.clamp(pos, 0.0, len(src) - 1.0)
+    """Positions ``dst`` (pixels) in the index space of the window centres ``src``, clipped to it.
+
+    A float32 division made on the host, the same on every device: XLA folds
+    the JAX package's constant coordinates of ``_grid_to_grid`` so (on a CUDA
+    tensor PyTorch would multiply by the reciprocal instead).
+    """
+    pos = (np.asarray(dst, dtype=np.float32) - np.float32(src[0])) / _step(src)
+    return torch.as_tensor(np.clip(pos, 0.0, len(src) - 1.0), device=device)
 
 
 def _dense_coords(rows: np.ndarray, cols: np.ndarray, h: int, w: int, device):
-    """(rr [h], cc [w]): each pixel row and column in the index space of the window grid (rows, cols)."""
-    return _grid_coords(rows, np.arange(h), device), _grid_coords(cols, np.arange(w), device)
+    """(rr [h], cc [w]): each pixel row and column in the index space of the window grid (rows, cols),
+    clipped to it.
+
+    ``(x - src[0]) * r`` with ``r`` the step's float32 reciprocal, rounded in
+    float32: XLA's CPU build rewrites the JAX package's division by the
+    constant step in ``_grid_to_dense`` so (at a step that is not a power of
+    two, a division would differ in the last bit).
+    """
+
+    def axis(src, n):
+        pos = (np.arange(n, dtype=np.float32) - np.float32(src[0])) * (np.float32(1.0) / _step(src))
+        return torch.as_tensor(np.clip(pos, 0.0, len(src) - 1.0), device=device)
+
+    return axis(rows, h), axis(cols, w)
 
 
 def _grid_to_dense(field: torch.Tensor, rows: np.ndarray, cols: np.ndarray, h: int, w: int, coords=None):
@@ -136,10 +161,12 @@ def _grid_to_dense(field: torch.Tensor, rows: np.ndarray, cols: np.ndarray, h: i
 
     field: [..., n_rows, n_cols] at window centres (rows, cols); edge cells
     extend to the frame border (clamped index space). ``coords`` are
-    :func:`_dense_coords` made by the caller (by default made here).
+    :func:`_dense_coords` made by the caller (by default made here). The
+    four-term sums round as chain A of :func:`~pyorc_tpu_torch.ops.interp.map_linear`,
+    as XLA's CPU build compiles the JAX package's jitted deformation.
     """
     rr, cc = _dense_coords(rows, cols, h, w, field.device) if coords is None else coords
-    return map_linear(field, rr[:, None], cc[None, :])
+    return map_linear(field, rr[:, None], cc[None, :], order="fma_a")
 
 
 def _grid_to_grid(field: torch.Tensor, src_rows, src_cols, dst_rows, dst_cols) -> torch.Tensor:
@@ -149,8 +176,8 @@ def _grid_to_grid(field: torch.Tensor, src_rows, src_cols, dst_rows, dst_cols) -
     destination window centres, so the predictor added back to the residual
     is exactly the field the pair was deformed with at those points.
     """
-    rr = _grid_coords(src_rows, np.asarray(dst_rows, dtype=np.float32), field.device)
-    cc = _grid_coords(src_cols, np.asarray(dst_cols, dtype=np.float32), field.device)
+    rr = _grid_coords(src_rows, dst_rows, field.device)
+    cc = _grid_coords(src_cols, dst_cols, field.device)
     return map_linear(field, rr[:, None], cc[None, :])
 
 
@@ -158,12 +185,15 @@ def _deform_pair(img_a: torch.Tensor, img_b: torch.Tensor, dr: torch.Tensor, dc:
     """Symmetric deformation: A sampled at x - d/2, B at x + d/2 (bilinear).
 
     img_a, img_b, dr, dc: [..., h, w] float32 (dr rows down, dc columns right).
+    The samples' sums round as chain B of
+    :func:`~pyorc_tpu_torch.ops.interp.map_linear`, as XLA's CPU build
+    compiles the JAX package's jitted deformation.
     """
     h, w = img_a.shape[-2], img_a.shape[-1]
     base_r = torch.arange(h, dtype=torch.float32, device=img_a.device)[:, None]
     base_c = torch.arange(w, dtype=torch.float32, device=img_a.device)[None, :]
-    a_def = map_linear(img_a, base_r - dr / 2, base_c - dc / 2)
-    b_def = map_linear(img_b, base_r + dr / 2, base_c + dc / 2)
+    a_def = map_linear(img_a, base_r - dr / 2, base_c - dc / 2, order="fma_b")
+    b_def = map_linear(img_b, base_r + dr / 2, base_c + dc / 2, order="fma_b")
     return a_def, b_def
 
 
@@ -174,8 +204,9 @@ def _deformed_pairs(frames, u, v, rows_prev, cols_prev, coords):
     [2 (T - 1), H, W]. ``coords`` are the caller's :func:`_dense_coords`, the
     ones the kernel reads.
 
-    Works through blocks of pairs so the dense fields and the gather indices
-    of one block stay near ``_DEFORM_BLOCK_PX`` pixels.
+    Works through blocks of pairs so the dense fields, the gather indices and
+    the emulated fused multiply-adds' float64 temporaries of one block stay
+    near ``_DEFORM_BLOCK_PX`` pixels.
     """
     n_pairs, h, w = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
     a_stack, b_stack = frames[:-1], frames[1:]

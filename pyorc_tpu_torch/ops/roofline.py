@@ -19,14 +19,15 @@ __all__ = ["PEAK_FP32_FLOPS", "DEFORM_PEAK_FLOPS", "PEAK_HBM_BYTES", "work_bound
 # H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# float32 operations of the deformation a pair pixel: four bilinear samples (the
-# predictor's two at the pixel, then frame A's and frame B's) of 17 each (two
-# floors, two weights and their complements, four weight products, four
-# products, three sums), two halvings and four sample coordinates
-DEFORM_OPS_PER_PIXEL = 4 * 17 + 2 + 4
-# the rate of those operations: PEAK_FP32_FLOPS counts a fused multiply-add as two,
-# and the deformation's bitwise contract with its plain version forbids fusing
-# (every product and sum is rounded on its own), so each is one instruction
+# float32 instructions of the deformation a pair pixel: four bilinear samples (the
+# predictor's two at the pixel, then frame A's and frame B's) of 14 each (two
+# floors, two weights and their complements, four weight products, then one
+# product and three fused multiply-adds in the rounding order of JAX's compiled
+# deformation), two halvings and four sample coordinates
+DEFORM_OPS_PER_PIXEL = 4 * 14 + 2 + 4
+# the rate of those instructions: PEAK_FP32_FLOPS counts a fused multiply-add as
+# two operations, and the rounding order fixes which products fuse (the rest are
+# rounded on their own), so each instruction, fused or not, is one of PEAK / 2
 DEFORM_PEAK_FLOPS = PEAK_FP32_FLOPS / 2
 
 
@@ -72,8 +73,8 @@ def ensemble_bound(frames, args):
 def deform_bound(frames, u):
     """Multipass's deformation kernel: ``frames`` [T, H, W] float32 deformed by ``u``, ``v`` [T - 1,
     n_rows, n_cols] into the pairs [2 (T - 1), H, W]. Bytes: the frames, both predictors and the two
-    coordinate vectors read once, the pairs written once; operations: DEFORM_OPS_PER_PIXEL a pair
-    pixel, unfused (DEFORM_PEAK_FLOPS). Returns (bound_ms, "operations" or "bytes")."""
+    coordinate vectors read once, the pairs written once; operations: DEFORM_OPS_PER_PIXEL
+    instructions a pair pixel (DEFORM_PEAK_FLOPS). Returns (bound_ms, "operations" or "bytes")."""
     t, h, w = frames.shape
     n_pairs = t - 1
     n_bytes = 4 * (t * h * w + 2 * u.numel() + h + w + 2 * n_pairs * h * w)

@@ -69,12 +69,42 @@ def build_sti(frames: torch.Tensor, rows, cols) -> torch.Tensor:
     cols = torch.as_tensor(cols, dtype=torch.float32, device=frames.device)
     if frames.dtype not in (torch.uint8, torch.float32):
         frames = frames.to(torch.float32)
-    sti = map_linear(frames, rows, cols)  # [T, n_lines, L]
+    sti = map_linear(frames, rows, cols, order="fma_b")  # [T, n_lines, L]
     return sti.movedim(0, 1)
 
 
+# XLA's CPU build rewrites a cumulative sum (a reduce_window over the whole axis) into blocks of this
+# many elements
+_SCAN_BLOCK = 16
+
+
+def _cumsum_as_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum`` along ``dim`` in float32 as XLA's CPU build sums it: each block of
+    ``_SCAN_BLOCK`` elements left to right, the blocks' totals scanned the same way, and each
+    block's exclusive prefix then added to its elements (``torch.cumsum`` accumulates a float32
+    CPU tensor in float64, and a CUDA one in another order)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    n_blocks = -(-n // _SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, n_blocks * _SCAN_BLOCK - n)).unflatten(-1, (n_blocks, _SCAN_BLOCK))
+    sums = [blocks[..., 0]]
+    for k in range(1, _SCAN_BLOCK):
+        sums.append(sums[-1] + blocks[..., k])
+    out = torch.stack(sums, dim=-1)
+    if n_blocks > 1:
+        before = _cumsum_as_xla(out[..., -1], -1)
+        out = out + torch.nn.functional.pad(before[..., :-1], (1, 0)).unsqueeze(-1)
+    return out.flatten(-2)[..., :n].movedim(-1, dim)
+
+
 def _box_smooth_1d(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
-    """Box filter along one axis (edge padded): a cumulative sum, differenced."""
+    """Box filter along one axis (edge padded): a cumulative sum, differenced.
+
+    Rounded as the JAX package's jitted function (its callers are jitted):
+    the cumulative sum in XLA's blocks (:func:`_cumsum_as_xla`), and the
+    division by ``size`` a multiply by its float32 reciprocal, as XLA
+    rewrites a division by a constant.
+    """
     if size <= 1:
         return x
     lo = size // 2
@@ -83,9 +113,9 @@ def _box_smooth_1d(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
     first = x.narrow(axis, 0, 1)
     last = x.narrow(axis, n - 1, 1)
     xp = torch.cat([first.repeat_interleave(lo, dim=axis), x, last.repeat_interleave(hi, dim=axis)], dim=axis)
-    c = torch.cumsum(xp, dim=axis)
+    c = _cumsum_as_xla(xp, axis)
     c = torch.cat([torch.zeros_like(first), c], dim=axis)
-    return (c.narrow(axis, size, n) - c.narrow(axis, 0, n)) / size
+    return (c.narrow(axis, size, n) - c.narrow(axis, 0, n)) * float(np.float32(1.0) / np.float32(size))
 
 
 def _sti_orientation(sti: torch.Tensor, window: int, valid: Optional[torch.Tensor] = None):

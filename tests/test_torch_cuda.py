@@ -218,10 +218,13 @@ DEFORM_CASES = {
     "past-all-edges": (4, 40, 60, (16, 16), (8, 8), 50.0, None, 0),  # samples up to ~25 px off every edge
     "over-one-block": (6, 24, 32, (16, 16), (8, 8), 3.0, 2 * 24 * 32, 0),  # 5 pairs in plain blocks of 2
     "small-spread": (5, 45, 77, (16, 16), (8, 8), 0.5, None, 0),  # every tap within the staged halo
-    # four tiles down, the first past the halo; under 128 px across, where one float32 ulp of a sample
-    # coordinate (JAX's CPU build rounds the dense predictor other than PyTorch, by up to 1 ulp) stays
-    # within the JAX test's 1e-5 * 255 on 0-255 noise
-    "some-cells-past-halo": (4, 100, 120, (16, 16), (8, 8), 0.5, None, 3),
+    # three tiles down and across, the first row's past the halo; 300 px across, where one float32 ulp
+    # of a sample coordinate (3e-5 px) times 0-255 noise would pass the JAX test's 1e-5 * 255: the
+    # rounding orders must be JAX's own
+    "some-cells-past-halo": (4, 70, 300, (16, 16), (8, 8), 0.5, None, 3),
+    # a step of 13 px, whose float32 reciprocal (XLA's rewrite of JAX's division) rounds the dense
+    # predictor's coordinates other than a division would
+    "step-13-px": (4, 300, 300, (26, 26), (13, 13), 3.0, None, 0),
     "run-remainder": (19, 24, 40, (16, 16), (8, 8), 0.5, None, 0),  # 18 pairs: runs of 12 and of 6
     "ragged-width": (3, 41, 263, (16, 16), (8, 8), 0.5, None, 0),  # a width past two tiles, not a multiple of 4
     "below-one-tile": (3, 20, 30, (8, 8), (4, 4), 0.5, None, 0),  # a plane smaller than one tile

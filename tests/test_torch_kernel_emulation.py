@@ -117,10 +117,12 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
 }
 
 // IEEE float32 operations that the card's compiler never contracts; g++ runs
-// with -ffp-contract=off, so neither does the host
+// with -ffp-contract=off, so neither does the host; the fused multiply-add
+// rounds once, as the card's does
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 

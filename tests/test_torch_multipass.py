@@ -9,7 +9,8 @@ rehearsed on the CPU. Inputs are made with numpy from seeds and handed to
 both packages. Tolerances:
 
 - modules: the median test within 1e-6 px, the resampling and deformation
-  within 1e-5 (the same float32 operations in both packages);
+  within 1e-5 of JAX's eager functions, and bit for bit JAX's jitted ones
+  (the rounding orders of XLA's CPU build: ``ops/interp.map_linear``);
 - ``piv_multipass``: u, v within 1e-3 px on windows whose last-pass top-2
   peak gap exceeds 5e-3 (``chip_smoke.hold_pairs``' criterion), cmax within
   1e-4; against the interpret route also JAX's own bound (90 % of |d| under
@@ -17,6 +18,8 @@ both packages. Tolerances:
 - the chain: v_x / v_y within 2e-3 m/s, Q within 1 %.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -119,6 +122,54 @@ def test_grid_resampling_and_deformation_match_jax():
     got = [x.numpy() for x in tmp._deform_pair(*(torch.as_tensor(x) for x in (img_a, img_b, dr, dc)))]
     for g, wt in zip(got, want):
         np.testing.assert_allclose(g, wt, atol=1e-5 * 255, rtol=0)
+
+
+def _bits(a):
+    return np.asarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("step", [13, 14])
+def test_grid_to_dense_matches_jitted_jax(step):
+    """At a step that is not a power of two, JAX's jitted ``_grid_to_dense`` (as ``_deform_stage``
+    compiles it) multiplies by the step's float32 reciprocal and sums as chain A; the port's coordinates
+    and dense field are its bits (the eager function divides, 1 ulp apart on many coordinates)."""
+    h, w = 300, 330
+    cols, rows = jwin.get_rect_coordinates((h, w), (2 * step,) * 2, (2 * step,) * 2, (step, step))
+    field = np.random.default_rng(step).normal(0.0, 6.0, (2, len(rows), len(cols))).astype(np.float32)
+    want = jax.jit(lambda f: jmp._grid_to_dense(f, rows, cols, h, w))(field)
+    rr, cc = tmp._dense_coords(rows, cols, h, w, "cpu")
+    want_rr = jax.jit(lambda: (jnp.arange(h, dtype=jnp.float32) - float(rows[0])) / float(step))()
+    np.testing.assert_array_equal(_bits(rr.numpy()), _bits(np.clip(want_rr, 0.0, len(rows) - 1.0)))
+    divided = np.clip((np.arange(h, dtype=np.float32) - np.float32(rows[0])) / np.float32(step), 0.0, len(rows) - 1.0)
+    assert (_bits(rr.numpy()) != _bits(divided)).sum() > h // 4
+    got = tmp._grid_to_dense(torch.as_tensor(field), rows, cols, h, w).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_deform_pair_matches_jitted_jax():
+    """``_deform_pair`` sums its samples as chain B, as XLA's CPU build compiles JAX's inside a jit."""
+    rng = np.random.default_rng(6)
+    h, w = 120, 310
+    img_a, img_b = (rng.uniform(0, 255, (h, w)).astype(np.float32) for _ in range(2))
+    dr, dc = (rng.normal(0.0, 20.0, (h, w)).astype(np.float32) for _ in range(2))  # off every edge
+    want = jax.jit(jmp._deform_pair)(img_a, img_b, dr, dc)
+    got = tmp._deform_pair(*(torch.as_tensor(x) for x in (img_a, img_b, dr, dc)))
+    for g, wt in zip(got, want):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(wt))
+
+
+@pytest.mark.parametrize("dst_window", [26, 52])
+def test_grid_to_grid_matches_jitted_jax(dst_window):
+    """``_grid_to_grid`` onto a finer grid of 26 / 52 px windows as ``_deform_stage`` compiles it (the
+    destination centres are constants, which XLA folds with a true division): bit for bit."""
+    h, w = 300, 330
+    cols_c, rows_c = jwin.get_rect_coordinates((h, w), (2 * dst_window,) * 2, (2 * dst_window,) * 2, (dst_window,) * 2)
+    cols_f, rows_f = jwin.get_rect_coordinates((h, w), (dst_window,) * 2, (dst_window,) * 2, (dst_window // 2,) * 2)
+    field = np.random.default_rng(dst_window).normal(0.0, 6.0, (3, len(rows_c), len(cols_c))).astype(np.float32)
+    grids = [tuple(map(float, g)) for g in (rows_c, cols_c, rows_f, cols_f)]
+    want = jax.jit(lambda f: jmp._grid_to_grid(f, *grids))(field)
+    got = tmp._grid_to_grid(torch.as_tensor(field), rows_c, cols_c, rows_f, cols_f).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def _shift_frames(rng):
@@ -330,3 +381,5 @@ def test_multipass_phases_on_cpu(projected, monkeypatch):
     out = chip_smoke.multipass_main_path_check(proj_t, pivs[32], "cpu")
     assert out["max_abs_duv_px"] == 0.0 and [p["window"] for p in out["passes"]] == [128, 64, 32]
     assert all(p["bound_by"] == "operations" and p["bound_ms"] > 0 for p in out["passes"])
+    times = chip_smoke.deform_pass_times({32: out})["32px"]
+    assert [t["pass"] for t in times] == [2, 3] and all(t["ms"] is None and t["bound_ms"] > 0 for t in times)

@@ -170,6 +170,56 @@ def test_fma_emulation_is_exact(rng):
         np.testing.assert_array_equal(cam._fma(_t(x), _t(y), _t(c)).numpy(), want)
 
 
+def _plain_points_times(pts, m):
+    """``pts @ m.T`` as a BLAS without fused multiply-adds rounds it: each product and sum, k = 0, 1, 2."""
+    return (pts[:, :1] * m[:, 0] + pts[:, 1:2] * m[:, 1]) + pts[:, 2:3] * m[:, 2]
+
+
+def _fused_points_times(pts, m):
+    """``pts @ m.T`` as an FMA-chaining BLAS rounds it, through the exact emulated FMA."""
+    p, q = _t(pts), _t(m)
+    return cam._fma(p[:, 2:3], q[:, 2], cam._fma(p[:, 1:2], q[:, 1], p[:, :1] * q[:, 0])).numpy()
+
+
+@pytest.mark.parametrize("rule", ["fma", "plain"])
+def test_twins_follow_the_hosts_blas_rule(rng, monkeypatch, caplog, rule):
+    """With the host's 3x3 products made to round one way, the first-use probe finds that way and logs
+    it, and the twins then give that host's points and ortho maps bit for bit; the other rule's twins
+    would not give its points."""
+    import logging
+
+    monkeypatch.setattr(cam, "_points_times", {"fma": _fused_points_times, "plain": _plain_points_times}[rule])
+    monkeypatch.setattr(cam, "_BLAS_RULE", None)
+    with caplog.at_level(logging.INFO, logger=cam.__name__):
+        assert cam.host_blas_rule() == rule
+    assert f"round as {rule}" in caplog.text
+    cc, rvec, tvec = _pose("geul")
+    pts = _world_points(rng, cc)
+    want = cam.project_points(pts, rvec, tvec, K, DIST)
+    np.testing.assert_array_equal(cam.project_points_tensor(_t(pts), rvec, tvec, K, DIST).numpy(), want)
+    M = cam.homography_from_pose(rvec, tvec, K, z=cc.gcps["z_0"] + 0.3)
+    uv = rng.uniform(0, 1920, (N_POINTS, 2))
+    np.testing.assert_array_equal(cam.perspective_transform_tensor(_t(uv), M).numpy(), cam.perspective_transform(uv, M))
+    for label, cc, h_a in [c for c in _cameras() if c[0] in ("geul", "oblique-coarse")]:
+        x, y = _grid(cc)
+        z = cc.get_z_a(h_a)
+        got = tortho.build_ortho_maps_tensor(cc, x, y, z, device="cpu")
+        _assert_maps_equal(got, tortho.build_ortho_maps(cc, x, y, z), f"{label}, {rule}")
+    monkeypatch.setattr(cam, "_BLAS_RULE", {"fma": "plain", "plain": "fma"}[rule])
+    assert (cam.project_points_tensor(_t(pts), rvec, tvec, K, DIST).numpy() != want).any()
+
+
+def test_blas_probe_warns_on_another_rounding(monkeypatch, caplog):
+    """A host whose products are neither rounding is logged as a warning; the twins keep the chain."""
+    import logging
+
+    monkeypatch.setattr(cam, "_points_times", lambda pts, m: np.full((len(pts), 3), 2.0**-53))
+    monkeypatch.setattr(cam, "_BLAS_RULE", None)
+    with caplog.at_level(logging.INFO, logger=cam.__name__):
+        assert cam.host_blas_rule() == "fma"
+    assert "neither an FMA chain nor plain products" in caplog.text
+
+
 @pytest.mark.parametrize("pose", ["nadir", "geul"])
 def test_project_points_tensor_bitwise(rng, pose):
     """Bitwise on both poses: Geul's world coordinates (~3e5 m) make every last bit of the 3x3 product count."""

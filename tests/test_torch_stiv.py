@@ -3,6 +3,7 @@ package on the CPU, on the advected texture of ``tests/test_stiv.py``."""
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -75,6 +76,8 @@ def test_build_sti(advect, dtype):
     got = tstiv.build_sti(torch.as_tensor(frames), rows, cols)
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, T_LEN, 97)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * float(np.abs(want).max()))
+    # JAX's build_sti is jitted, and XLA's CPU build sums each sample as chain B (ops/interp.py)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
     # sampled in batches of frames, as get_stiv does: the same values
     parts = [tstiv.build_sti(torch.as_tensor(frames[s : s + 16]), rows, cols) for s in range(0, T_LEN, 16)]
     assert torch.equal(torch.cat(parts, dim=1), got)
@@ -88,6 +91,17 @@ def test_box_smooth_1d(sti, size, axis):
     got = tstiv._box_smooth_1d(torch.as_tensor(sti), size, axis).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("size,shape,axis", [(4, (128, 404), -1), (5, (128, 404), -1), (21, (3, 40, 97), 1),
+                                             (31, (7, 1000), -1), (250, (3, 97), -1)])
+def test_box_smooth_1d_matches_jitted_jax(size, shape, axis):
+    """Bit for bit JAX's jitted box filter (its callers are jitted): XLA's CPU build sums the
+    cumulative sum in blocks of 16 and multiplies by the float32 reciprocal of ``size``."""
+    x = np.random.default_rng(size).normal(0.0, 50.0, shape).astype(np.float32)
+    want = np.asarray(jax.jit(jstiv._box_smooth_1d, static_argnums=(1, 2))(x, size, axis))
+    got = tstiv._box_smooth_1d(torch.as_tensor(x), size, axis).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("window", [0, 31])

@@ -191,4 +191,5 @@ def test_chip_smoke_host_stages_step_on_cpu():
     }
     out = chip_smoke.host_stages_phase(pivs, cc, "cpu", cameras=cameras, aoi_px=40)
     assert out["maps"]["oblique"]["mean_groups"] > 0 and out["maps"]["nadir"]["separable"]
+    assert out["host_blas_rule"] in ("fma", "plain")
     assert out["transect"][16]["finite_v_x"] > 0
