@@ -213,6 +213,14 @@ stages outside any hand-written kernel.
 
 stops after steps 1-3 (to compare two trees' kernels on one card).
 
+    python3 chip_smoke.py --conversion-times [TREE]
+
+builds the kernels of TREE's ``pyorc_tpu_torch`` (default this checkout; a
+parent unpacked with ``git archive`` beside it) and prints one line for each
+of CONVERSION_SHAPES: the YUV conversion kernel's time, gray and RGB, on the
+main path's I420 batch layout, with its plain version's, its bound and the
+access path it took (to compare two trees' conversion on one card).
+
     python3 chip_smoke.py --profile
 
 instead runs the five slices (per-pair, multipass, non-square, ensemble,
@@ -1109,10 +1117,18 @@ H264_WINDOW = 25  # the lazy chain's window on clip (a): 26 px, as the slice's s
 # 16 frames of clip (a) read alone: its sync frames (0, 30, 60), the frames after them, B-frames and
 # P-frames of the first, middle and last GOP, and the last frame
 H264_SEEKS = (0, 1, 2, 3, 5, 13, 29, 30, 31, 33, 45, 59, 60, 61, 62, 63)
-# Predictions written before the first card run of this phase (PERF.md §6-§7; an H100 at 700 W):
-# the conversion kernel within 2x of its bound at 1080p; decode of clip (a) on the card route at
-# least as fast as cv2's sequential read
-PREDICTED = {"yuv420_to_frames 1080p gray, ms a frame": (0.003, 0.010)}
+# Predictions for the conversion kernel's redesign (a thread a 16 x 2 strip, 16-byte loads and stores),
+# written before its first card run (PERF.md §6; an H100 at 700 W): the lazy chain's main batch, 30
+# frames of 1080p, at 71-89 % of its bound (bytes) in gray, the same batch in RGB, and the 16-byte
+# path's SASS from entry to exit over its 32 pixels
+PREDICTED = {
+    "yuv420_to_frames 30x1080x1920 gray, ms": (0.052, 0.065),
+    "yuv420_to_frames 30x1080x1920 rgb, ms": (0.095, 0.12),
+    "yuv420_to_frames 16-byte path, SASS a pixel": (18, 28),
+}
+# (n, h, w) of the conversion's standalone timing (--conversion-times): the lazy chain's main batch of
+# clip (a), and a batch of clip (b)'s 4K frames
+CONVERSION_SHAPES = ((30, 1080, 1920), (9, 2160, 3840))
 
 
 def swscale_library():
@@ -1190,8 +1206,8 @@ def conversion_check(device):
     """Step 0b: the conversion kernel (``csrc/nv12.cu``) on the card against its plain version on the
     same tensors, and both against OpenCV's own conversion (its libswscale, then cvtColor's BGR2GRAY),
     bit for bit, on the frame of every (Y, U, V) triple, random planes (odd widths among them) and every
-    frame of clip (c); then its time on a 1080p gray frame beside its bound and the plain version's.
-    Launches here are checks, not the main path's."""
+    frame of clip (c), each whole and moved one byte into a wider buffer, so that both of the kernel's
+    paths (``nvdec.PATHS``) see every case. Launches here are checks, not the main path's."""
     import cv2
     import torch
 
@@ -1208,19 +1224,30 @@ def conversion_check(device):
                                      rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))]
     cases["clip (c) 322x242, every frame"] = clip_planes(ROOT / H264_CLIPS["c"])
     out = {"swscale": version, "max_abs_err": 0}
+    paths = dict(nvdec.PATHS)
     for name, frames in cases.items():
         for y, u, v in frames:
             want = swscale_bgr(lib, y, u, v)
-            planes = [torch.as_tensor(p, device=device)[None] for p in (y, u, v)]
-            for gray in (True, False):
-                got = nvdec.yuv420_to_frames(*planes, gray)
-                plain = nvdec.yuv420_to_frames_plain(*planes, gray)
-                ref = cv2.cvtColor(want, cv2.COLOR_BGR2GRAY) if gray else want[..., ::-1]
-                out["max_abs_err"] = max(out["max_abs_err"], int((got.int() - plain.int()).abs().max()))
-                if not torch.equal(got, plain) or not np.array_equal(got[0].cpu().numpy(), ref):
-                    raise AssertionError(f"conversion {name} ({'gray' if gray else 'rgb'}): kernel, plain version "
-                                         f"and OpenCV's swscale + cvtColor differ")
-        out[name] = f"{len(frames)} frame(s), gray and RGB bit for bit"
+            whole = [torch.as_tensor(p, device=device)[None] for p in (y, u, v)]
+            # the same planes one byte into a wider buffer: the kernel's scalar path on every case
+            moved = []
+            for p in (y, u, v):
+                t = torch.zeros((1, p.shape[0], p.shape[1] + 1), dtype=torch.uint8, device=device)
+                t[0, :, 1:] = torch.as_tensor(p, device=device)
+                moved.append(t[:, :, 1:])
+            for planes in (whole, moved):
+                for gray in (True, False):
+                    got = nvdec.yuv420_to_frames(*planes, gray)
+                    plain = nvdec.yuv420_to_frames_plain(*planes, gray)
+                    ref = cv2.cvtColor(want, cv2.COLOR_BGR2GRAY) if gray else want[..., ::-1]
+                    out["max_abs_err"] = max(out["max_abs_err"], int((got.int() - plain.int()).abs().max()))
+                    if not torch.equal(got, plain) or not np.array_equal(got[0].cpu().numpy(), ref):
+                        raise AssertionError(f"conversion {name} ({'gray' if gray else 'rgb'}): kernel, plain "
+                                             f"version and OpenCV's swscale + cvtColor differ")
+        out[name] = f"{len(frames)} frame(s), gray and RGB bit for bit, whole and moved one byte"
+    out["paths"] = {k: v - paths[k] for k, v in nvdec.PATHS.items()}
+    if torch.device(device).type == "cuda" and not all(out["paths"].values()):
+        raise AssertionError(f"the checks did not take both of the kernel's paths: {out['paths']}")
     from pyorc_tpu_torch.ops import piv_kernels
 
     want = "cuda" if torch.device(device).type == "cuda" else "plain_cpu"
@@ -1229,35 +1256,73 @@ def conversion_check(device):
     return out
 
 
-def conversion_times(device, shape, reps=20):
-    """The conversion kernel's time [ms] a launch at ``shape`` (n, h, w, gray), by CUDA events over
-    ``reps`` launches, beside the plain version's and the bound (``roofline.yuv420_bound``)."""
+def conversion_times(device, n, h, w, reps=100, plain_reps=10):
+    """The conversion kernel's time [ms] a launch on ``n`` frames of ``h`` x ``w``, gray and RGB, by CUDA
+    events over ``reps`` launches, on the planes of one I420 batch as ``LibavVideoReader.read`` uploads
+    them (``nvdec.i420_planes``): beside each, the plain version's time, the bound
+    (``roofline.yuv420_bound``), the host's time to issue a launch (a device time at or under it would
+    time the wrapper, not the kernel) and the access path the kernel took (``nvdec.PATHS``; a tree
+    without it has one path)."""
     import torch
 
     from pyorc_tpu_torch.io import nvdec
     from pyorc_tpu_torch.ops import piv_kernels, roofline
 
-    n, h, w, gray = shape
     g = torch.Generator(device=device).manual_seed(3)
-    y = torch.randint(0, 256, (n, h, w), dtype=torch.uint8, device=device, generator=g)
-    u, v = (torch.randint(0, 256, (n, h // 2, w // 2), dtype=torch.uint8, device=device, generator=g)
-            for _ in range(2))
+    batch = torch.randint(0, 256, (n, h * w * 3 // 2), dtype=torch.uint8, device=device, generator=g)
+    planes = nvdec.i420_planes(batch, h, w)
     launches = piv_kernels.LAUNCHES[nvdec.KERNEL]
-    times = {}
-    for name, fn in (("ms", nvdec.yuv420_to_frames), ("plain_ms", nvdec.yuv420_to_frames_plain)):
-        fn(y, u, v, gray)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(y, u, v, gray)
-        end.record()
-        torch.cuda.synchronize()
-        times[name] = start.elapsed_time(end) / reps
+    paths = getattr(nvdec, "PATHS", None)
+    out = {"shape": [n, h, w]}
+    for gray in (True, False):
+        row = {}
+        before = dict(paths or {})
+        for name, fn, count in (("ms", nvdec.yuv420_to_frames, reps),
+                                ("plain_ms", nvdec.yuv420_to_frames_plain, plain_reps)):
+            fn(*planes, gray)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                fn(*planes, gray)
+            host = time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+            row[name] = start.elapsed_time(end) / count
+            if name == "ms":
+                row["host_ms_a_launch"] = 1e3 * host / count
+        row["bound_ms"], row["bound_by"] = roofline.yuv420_bound(n, h, w, gray)
+        row["library_ms"] = None
+        row["path"] = (sorted(k for k in paths if paths[k] != before[k]) if paths is not None
+                       else "one path (no nvdec.PATHS)")
+        out["gray" if gray else "rgb"] = row
     piv_kernels.LAUNCHES[nvdec.KERNEL] = launches  # timing launches are not the main path's
-    bound, by = roofline.yuv420_bound(n, h, w, gray)
-    return {"shape": [n, h, w, "gray" if gray else "rgb"], **times, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+    return out
+
+
+def conversion_times_main(argv):
+    """``--conversion-times [TREE]``: :func:`conversion_times` at each of CONVERSION_SHAPES, one JSON
+    line each with the card, for the ``pyorc_tpu_torch`` of TREE (another checkout, such as a parent
+    unpacked with ``git archive``; default this one), its kernels built from TREE's sources."""
+    tree = Path(argv[0]).resolve() if argv else ROOT
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import pyorc_tpu_torch
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU.", file=sys.stderr)
+        return 1
+    if Path(pyorc_tpu_torch.__file__).resolve().parents[1] != tree:
+        raise AssertionError(f"pyorc_tpu_torch came from {pyorc_tpu_torch.__file__}, not {tree}")
+    _print_card(torch)
+    piv_kernels.build_library()
+    for n, h, w in CONVERSION_SHAPES:
+        print("conversion times " + json.dumps({"tree": str(tree), "card": _card_line(),
+                                                **conversion_times("cuda", n, h, w)}), flush=True)
+    return 0
 
 
 def decode_plan(path):
@@ -1423,8 +1488,9 @@ def h264_chain(device, route, window=H264_WINDOW):
 
 
 def nvdec_phase(device, folder):
-    """Steps 0a-0g: H.264 MP4 decode on the card. Returns (results, the conversion kernel's launches on
-    the main path, its time row)."""
+    """Steps 0a-0g: H.264 MP4 decode on the card; every conversion of the lazy chain and the recipe on
+    clip (a) on the card route must take the kernel's 16-byte path. Returns (results, the conversion
+    kernel's launches on the main path, its times at the chain's main batch, gray and RGB)."""
     from unittest import mock
 
     import torch
@@ -1463,9 +1529,16 @@ def nvdec_phase(device, folder):
         shapes.append((y.shape[0], y.shape[1], y.shape[2], bool(gray)))
         return convert(y, u, v, gray)
 
-    chains, walls = {}, {}
+    def vector_path_only(where, launches):
+        # every conversion of the main path on clip (a) took the kernel's 16-byte path
+        if nvdec.PATHS != {"16-byte": launches, "scalar": 0}:
+            raise AssertionError(f"{where}: {launches} conversion launches, by path {nvdec.PATHS}")
+        return dict(nvdec.PATHS)
+
+    chains, walls, paths = {}, {}, {}
     for route in (None, "cv2"):
         t0 = time.perf_counter()
+        nvdec.PATHS.update({k: 0 for k in nvdec.PATHS})
         with mock.patch.object(nvdec, "yuv420_to_frames", recorded):
             (piv, res, rows, taken), _ = _drive(piv_kernels, "piv_pairs", lambda: h264_chain(device, route))
         walls[taken] = time.perf_counter() - t0
@@ -1475,6 +1548,8 @@ def nvdec_phase(device, folder):
                 raise AssertionError(f"{launches} conversion launches counted, {len(shapes)} made")
             if launches <= 0:
                 raise AssertionError(f"the lazy chain on the {taken} route launched no conversion kernel")
+            if taken == "libav":
+                paths["chain"] = vector_path_only("the lazy chain", launches)
         chains[taken] = (piv, res, rows)
         print(f"H.264 lazy chain step 0f on clip (a), {taken} route: wall {walls[taken]:.3f} s; stages "
               + json.dumps(rows) + "; results " + json.dumps(res), flush=True)
@@ -1487,6 +1562,7 @@ def nvdec_phase(device, folder):
 
     results["recipe"] = {}
     for route in (None, "cv2"):
+        nvdec.PATHS.update({k: 0 for k in nvdec.PATHS})
         with decode_route(route):
             t0 = time.perf_counter()
             (svc_results, svc_walls), svc_launches = _drive(
@@ -1497,6 +1573,8 @@ def nvdec_phase(device, folder):
         conversions = piv_kernels.LAUNCHES[nvdec.KERNEL]
         if route is None:
             recipe_launches = conversions
+            if card_route == "libav":
+                paths["recipe"] = vector_path_only("the recipe", conversions)
         results["recipe"][route or card_route] = {
             "wall_s": time.perf_counter() - t0, "launches": svc_launches, "conversion_launches": conversions,
             "stage_walls": svc_walls, **svc_results}
@@ -1506,11 +1584,14 @@ def nvdec_phase(device, folder):
     # most frames of the lazy chain (a single frame a launch times the wrapper's host overhead, not the kernel)
     frames_by_shape = {shape: shapes.count(shape) * shape[0] for shape in set(shapes)}
     main_shape = max(frames_by_shape, key=frames_by_shape.get) if shapes else (1, 1080, 1920, True)
-    timing = conversion_times(device, main_shape)
-    timing["ms_a_frame"] = timing["ms"] / main_shape[0]
+    timing = conversion_times(device, *main_shape[:3])
+    timing["main_path_mode"] = "gray" if main_shape[3] else "rgb"
     timing["launch_shapes"] = sorted(f"{n}x{h}x{w}{' gray' if g else ' rgb'}" for n, h, w, g in shapes)
+    timing["main_path_paths"] = paths
+    n, h, w = main_shape[:3]
+    predicted = {mode: PREDICTED.get(f"yuv420_to_frames {n}x{h}x{w} {mode}, ms") for mode in ("gray", "rgb")}
     print(f"conversion kernel at the lazy chain's main batch ({_card_line()}): " + json.dumps(timing)
-          + f"; predicted ms a 1080p gray frame {PREDICTED['yuv420_to_frames 1080p gray, ms a frame']}", flush=True)
+          + f"; predicted ms {json.dumps(predicted)}", flush=True)
     return results, launches + recipe_launches, timing
 
 
@@ -3600,17 +3681,11 @@ def _card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def sass_loops(sass, kernel="deform_pairs_kernel"):
-    """The innermost loops that store, in the SASS (``cuobjdump -sass`` text) of the functions whose
-    name holds ``kernel``: for each, its instructions, global stores, shared and global loads, and
-    instructions a pair pixel (two stores a pair pixel), beside the function's instruction count.
-
-    A loop is the span from a backward branch's target to the branch; innermost, one that holds no
-    other such span."""
-    out = []
+def _sass_functions(sass, kernel):
+    """Each function of ``cuobjdump -sass`` text whose name holds ``kernel``: (instructions, labels), the
+    instructions as (address, opcode without its predicate, text), the labels as {name: address}."""
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = block.split(None, 1)[0]
-        if kernel not in name:
+        if kernel not in block.split(None, 1)[0]:
             continue
         instrs, labels, pending = [], {}, []
         for line in block.splitlines():
@@ -3623,11 +3698,28 @@ def sass_loops(sass, kernel="deform_pairs_kernel"):
                 labels.update({lab: addr for lab in pending})
                 pending = []
                 instrs.append((addr, re.sub(r"^@!?U?P\w+\s+", "", text).split()[0], text))
+        yield instrs, labels
+
+
+def _branch_target(text, labels):
+    """The address a BRA's text names, by label or as an address (None: a label not in the function)."""
+    target = re.search(r"\((\.L_x_\d+)\)", text)
+    return labels.get(target.group(1)) if target else int(re.search(r"0x([0-9a-f]+)", text).group(1), 16)
+
+
+def sass_loops(sass, kernel="deform_pairs_kernel"):
+    """The innermost loops that store, in the SASS (``cuobjdump -sass`` text) of the functions whose
+    name holds ``kernel``: for each, its instructions, global stores, shared and global loads, and
+    instructions a pair pixel (two stores a pair pixel), beside the function's instruction count.
+
+    A loop is the span from a backward branch's target to the branch; innermost, one that holds no
+    other such span."""
+    out = []
+    for instrs, labels in _sass_functions(sass, kernel):
         spans = []
         for addr, op, text in instrs:
             if op.startswith("BRA"):
-                target = re.search(r"\((\.L_x_\d+)\)", text)
-                target = labels.get(target.group(1)) if target else int(re.search(r"0x([0-9a-f]+)", text).group(1), 16)
+                target = _branch_target(text, labels)
                 if target is not None and target <= addr:
                     spans.append((target, addr))
         inner = [a for a in spans if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
@@ -3645,8 +3737,90 @@ def sass_loops(sass, kernel="deform_pairs_kernel"):
     return out
 
 
-def sass_report(lib, kernel="deform_pairs_kernel"):
-    """:func:`sass_loops` of ``kernel`` in the built library ``lib`` (``cuobjdump`` beside ``nvcc``)."""
+def _shortest(blocks, sources, edges):
+    """Dijkstra over basic blocks weighted by their instructions: {block: (cost, previous block)} from
+    ``sources``, each source's cost its own weight."""
+    import heapq
+
+    best = {b: (blocks[b][0], None) for b in sources}
+    heap = [(cost, b) for b, (cost, _) in best.items()]
+    heapq.heapify(heap)
+    while heap:
+        cost, b = heapq.heappop(heap)
+        if cost > best[b][0]:
+            continue
+        for nxt in edges[b]:
+            c = cost + blocks[nxt][0]
+            if nxt not in best or c < best[nxt][0]:
+                best[nxt] = (c, b)
+                heapq.heappush(heap, (c, nxt))
+    return best
+
+
+def sass_vector_paths(sass, kernel="yuv420_to_frames_kernel", pixels=32):
+    """The paths through the SASS of ``kernel`` that store 16-byte vectors (``STG.E.128``): for each number
+    of such stores a path makes (the conversion's 16-byte path: 2 gray, 6 RGB), the fewest instructions a
+    path from the function's entry through a block holding one to an EXIT runs, and those over ``pixels``
+    (a thread's strip: instructions a converted pixel), beside the function's instruction count.
+
+    Basic blocks split at labels and branch targets and after each BRA and EXIT; a predicated BRA or
+    EXIT also falls through; NOPs do not count."""
+    out = []
+    for instrs, labels in _sass_functions(sass, kernel):
+        addrs = [a for a, _, _ in instrs]
+        leaders = {addrs[0], *labels.values()}
+        for k, (addr, op, text) in enumerate(instrs):
+            if op.startswith("BRA"):
+                leaders.add(_branch_target(text, labels))
+            if (op.startswith("BRA") or op == "EXIT") and k + 1 < len(instrs):
+                leaders.add(addrs[k + 1])
+        starts = [a for a in addrs if a in leaders]
+        first = {a: i for i, a in enumerate(starts)}
+        blocks, edges = [], []
+        for i, a in enumerate(starts):
+            lo = addrs.index(a)
+            hi = addrs.index(starts[i + 1]) if i + 1 < len(starts) else len(instrs)
+            body = instrs[lo:hi]
+            _, op, text = body[-1]
+            succ = []
+            if op.startswith("BRA") and _branch_target(text, labels) in first:
+                succ.append(first[_branch_target(text, labels)])
+            if (not (op.startswith("BRA") or op == "EXIT") or text.startswith("@")) and i + 1 < len(starts):
+                succ.append(i + 1)
+            stores = sum(o.startswith("STG") and ".128" in o for _, o, _ in body)
+            blocks.append((sum(o != "NOP" for _, o, _ in body), stores, op == "EXIT"))
+            edges.append(succ)
+        ahead = _shortest(blocks, [0], edges)  # from the entry
+        back = [[] for _ in blocks]
+        for b, succ in enumerate(edges):
+            for nxt in succ:
+                back[nxt].append(b)
+        behind = _shortest(blocks, [b for b, blk in enumerate(blocks) if blk[2]], back)  # to an EXIT
+        paths = {}
+        for s, blk in enumerate(blocks):
+            if not blk[1] or s not in ahead or s not in behind:
+                continue
+            path, b = [], s
+            while b is not None:
+                path.append(b)
+                b = ahead[b][1]
+            b = behind[s][1]
+            while b is not None:
+                path.append(b)
+                b = behind[b][1]
+            n_stores = sum(blocks[b][1] for b in path)
+            n = sum(blocks[b][0] for b in path)
+            if n_stores not in paths or n < paths[n_stores]:
+                paths[n_stores] = n
+        out.append({"function_instructions": sum(op != "NOP" for _, op, _ in instrs),
+                    "vector_paths": [{"stores": k, "instructions": n, "per_pixel": round(n / pixels, 2)}
+                                     for k, n in sorted(paths.items())]})
+    return out
+
+
+def sass_report(lib, kernel="deform_pairs_kernel", parse=sass_loops):
+    """``parse`` (:func:`sass_loops` or :func:`sass_vector_paths`) of ``kernel`` in the built library
+    ``lib`` (``cuobjdump`` beside ``nvcc``)."""
     from pyorc_tpu_torch.ops import piv_kernels
 
     tool = Path(piv_kernels._nvcc()).with_name("cuobjdump")
@@ -3656,7 +3830,7 @@ def sass_report(lib, kernel="deform_pairs_kernel"):
         return {"error": str(err)}
     if proc.returncode != 0:
         return {"error": proc.stderr.strip()[-500:]}
-    return sass_loops(proc.stdout, kernel)
+    return parse(proc.stdout, kernel)
 
 
 def _print_card(torch):
@@ -3695,6 +3869,8 @@ def main(argv) -> int:
 
     if argv[:1] == ["--segment-worker"]:
         return segment_worker(argv[1:])
+    if argv[:1] == ["--conversion-times"]:
+        return conversion_times_main(argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU.", file=sys.stderr)
         return 1
@@ -3712,8 +3888,10 @@ def main(argv) -> int:
     if log_file.exists():
         print(log_file.read_text().strip())
     print("sass deform_pairs_kernel (innermost storing loops) " + json.dumps(sass_report(lib)), flush=True)
-    print("sass yuv420_to_frames_kernel (no loop; its gray and RGB branches both counted) "
-          + json.dumps(sass_report(lib, "yuv420_to_frames_kernel")), flush=True)
+    print("sass yuv420_to_frames_kernel (no loop; the function's instructions, and on the 16-byte path, "
+          "gray (2 vector stores) and RGB (6), the instructions from entry to exit and a converted pixel; "
+          f"predicted {PREDICTED['yuv420_to_frames 16-byte path, SASS a pixel']}) "
+          + json.dumps(sass_report(lib, "yuv420_to_frames_kernel", sass_vector_paths)), flush=True)
     probe = decoder_probe()
     print("decoder_probe " + json.dumps(probe), flush=True)
 
@@ -3740,6 +3918,7 @@ def main(argv) -> int:
         return 0
     t0 = time.perf_counter()
     h264, conv_launches, conv_timing = nvdec_phase(device, ROOT / "build")
+    conv_main = conv_timing[conv_timing["main_path_mode"]]
     print(f"H.264 decode phase steps 0a-0g: wall {time.perf_counter() - t0:.3f} s", flush=True)
 
     stack = advected_stack(1080, 1920, 126, device)
@@ -4008,9 +4187,10 @@ def main(argv) -> int:
             "name": "yuv420_to_frames", "route": "cuda", "source": "pyorc_tpu_torch/csrc/nv12.cu",
             "replaces": "none (native/decoder.cpp:83-91 and :250-272, the host pump's swscale BGR24 and gray)",
             "launches": conv_launches, "max_abs_err": h264["conversion"]["max_abs_err"],
-            "ms": conv_timing["ms"], "plain_ms": conv_timing["plain_ms"], "bound_ms": conv_timing["bound_ms"],
-            "bound_by": conv_timing["bound_by"], "library_ms": None, "shape": conv_timing["shape"],
-            "decode_route": h264["plans"]["a"][0],
+            **{k: conv_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")},
+            "shape": conv_timing["shape"] + [conv_timing["main_path_mode"]],
+            "rgb": {k: conv_timing["rgb"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "path")},
+            "main_path_paths": conv_timing["main_path_paths"], "decode_route": h264["plans"]["a"][0],
         },
     ]}
     print(json.dumps(record))

@@ -49,9 +49,13 @@ __all__ = [
     "NvdecVideoReader",
     "LibavVideoReader",
     "KERNEL",
+    "PATHS",
 ]
 
 KERNEL = "yuv420_to_frames"  # its key in piv_kernels.LAUNCHES and KERNEL_ROUTE
+# the conversion kernel's launches through yuv420_to_frames by the access path csrc/nv12.cu took
+# (yuv420_convert_path): whole 16-byte vectors, or bytes for any other layout
+PATHS = {"16-byte": 0, "scalar": 0}
 
 # swscale's yuv2rgb in 16-bit fixed point (BT.601, limited range) and OpenCV 4's 15-bit BGR2GRAY weights: csrc/nv12.cu
 _Y_COEFF, _Y_OFFSET, _UB, _UG, _VG, _VR = 9539, 128, 16525, -3209, -6660, 13075
@@ -83,6 +87,8 @@ def _lib() -> ctypes.CDLL:
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.yuv420_convert_launch.argtypes = [vp, i64, i, vp, vp, i64, i, i, i, i, i, vp, i, vp]
     lib.yuv420_convert_launch.restype = i
+    lib.yuv420_convert_path.argtypes = [vp, i64, i, vp, vp, i64, i, i, i, vp]
+    lib.yuv420_convert_path.restype = i
     lib.nvdec_load.argtypes = [ctypes.c_char_p, i]
     lib.nvdec_load.restype = i
     lib.nvdec_caps.argtypes = [i, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, i]
@@ -106,8 +112,11 @@ def yuv420_to_frames(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, gray: bo
     ``y`` is [n, H, W], ``u`` and ``v`` [n, H/2, W/2], uint8, each with unit
     stride along its rows (a view into a larger buffer is taken as it is; the
     rows' pitch and the frames' stride are the kernel's arguments). On a CUDA
-    tensor one launch of ``csrc/nv12.cu`` on the current stream; on a CPU
-    tensor :func:`yuv420_to_frames_plain`.
+    tensor one launch of ``csrc/nv12.cu`` on the current stream, counted in
+    :data:`PATHS` by the access path the kernel took (``"16-byte"`` where every
+    row lies on a 16-byte boundary, as :func:`i420_planes` of a fresh batch
+    at a width that is a multiple of 16; else ``"scalar"``); on a CPU tensor
+    :func:`yuv420_to_frames_plain`.
     """
     n, h, w = y.shape
     if u.shape != (n, h // 2, w // 2) or v.shape != u.shape or h % 2 or w % 2:
@@ -122,14 +131,14 @@ def yuv420_to_frames(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, gray: bo
     if y.stride(2) != 1 or u.stride(2) != 1 or v.stride(2) != 1 or u.stride() != v.stride():
         raise ValueError("each plane's rows must be contiguous, and u and v laid out alike")
     out = torch.empty((n, h, w) if gray else (n, h, w, 3), dtype=torch.uint8, device=y.device)
+    lib = _lib()
+    planes = (y.data_ptr(), y.stride(0), y.stride(1), u.data_ptr(), v.data_ptr(), u.stride(0), u.stride(1), 1)
     with torch.cuda.device(y.device):
-        rc = _lib().yuv420_convert_launch(
-            y.data_ptr(), y.stride(0), y.stride(1), u.data_ptr(), v.data_ptr(), u.stride(0), u.stride(1), 1,
-            n, h, w, out.data_ptr(), int(gray), _stream_ptr(y.device),
-        )
+        rc = lib.yuv420_convert_launch(*planes, n, h, w, out.data_ptr(), int(gray), _stream_ptr(y.device))
     if rc != 0:
         raise RuntimeError(f"yuv420_to_frames: the conversion kernel's launch failed (cudaError {rc})")
     piv_kernels.LAUNCHES[KERNEL] += 1
+    PATHS["16-byte" if lib.yuv420_convert_path(*planes, w, out.data_ptr()) else "scalar"] += 1
     piv_kernels.KERNEL_ROUTE[KERNEL] = "cuda"
     return out
 

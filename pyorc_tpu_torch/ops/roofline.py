@@ -32,11 +32,14 @@ DEFORM_OPS_PER_PIXEL = 4 * 14 + 2 + 4
 # two operations, and the rounding order fixes which products fuse (the rest are
 # rounded on their own), so each instruction, fused or not, is one of PEAK / 2
 DEFORM_PEAK_FLOPS = PEAK_FP32_FLOPS / 2
-# integer instructions of the YUV conversion (csrc/nv12.cu) a pixel, a multiply with its add one
-# (IMAD), as the compiler fuses them: the luma term (a multiply-add and a shift), three sums and three
-# clamps of two (min, max), then gray's three multiply-adds and a shift and half a byte pack (RGB: one
-# and a half packs), and a quarter of the chroma terms' nine (four multiply-adds, four shifts, a sum)
-YUV420_OPS_PER_PIXEL = {True: 2 + 3 + 6 + 4 + 0.5 + 9 / 4, False: 2 + 3 + 6 + 1.5 + 9 / 4}
+# integer instructions of the YUV conversion (csrc/nv12.cu) a pixel, as its 16-byte path issues them
+# on the two pixels of a row that share a chroma sample, held as the halves of a word: a pair takes two
+# luma bytes (byte permutes), two multiply-adds (the offset folded in), one permute that keeps their
+# high halves, and three DPX add-min-relus of two halves (4 a pixel); then gray a permute and four
+# 16-by-8-bit dot products a pair and three quarters of a permute a pixel (three pack four levels),
+# RGB six permutes every four pixels; and a quarter of a chroma sample's eleven (two bytes, four
+# multiply-adds, a shift with a shifted sum, three permutes into halves)
+YUV420_OPS_PER_PIXEL = {True: 4 + 2.5 + 0.75 + 11 / 4, False: 4 + 1.5 + 11 / 4}
 # the multiply-adds issue on the FMA pipe and the rest on the ALU pipe, 64 a clock each on an SM of
 # compute capability 9.0 (NVIDIA's CUDA C++ Programming Guide, arithmetic instruction throughput); a
 # mix of both issues at most one warp instruction a clock on each of the SM's four schedulers, 128
@@ -97,7 +100,8 @@ def deform_bound(frames, u):
 def yuv420_bound(n, h, w, gray):
     """The YUV conversion kernel (``csrc/nv12.cu``): ``n`` frames of ``h`` x ``w`` from 4:2:0 planes
     (1.5 B a pixel read once) to gray (1 B) or RGB (3 B) written once, at PEAK_HBM_BYTES; its integer
-    instructions (YUV420_OPS_PER_PIXEL at INT32_PEAK_OPS) take about 70 % (gray) and a third (RGB) of
-    that time. Returns (bound_ms, "operations" or "bytes")."""
+    instructions (YUV420_OPS_PER_PIXEL, 10 gray and 8.25 RGB, at INT32_PEAK_OPS) take 40 % (gray) and
+    18 % (RGB) of that time, so the bytes set the bound: 0.0464 ms gray and 0.0836 ms RGB for the lazy
+    chain's batch of 30 frames of 1080p. Returns (bound_ms, "operations" or "bytes")."""
     pixels = n * h * w
     return _ms(YUV420_OPS_PER_PIXEL[bool(gray)] * pixels, pixels * (1.5 + (1 if gray else 3)), INT32_PEAK_OPS)

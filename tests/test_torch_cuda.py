@@ -325,21 +325,33 @@ def test_deform_cuda_tensor_never_takes_the_plain_route(cuda, monkeypatch):
 H264 = "tests/data/color_322x242.mp4"
 
 
-@pytest.mark.parametrize("h,w", [(1080, 1920), (242, 322), (18, 34)])
+@pytest.mark.parametrize(
+    "layout,h,w",
+    [("offset", 1080, 1920), ("offset", 242, 322), ("offset", 18, 34), ("i420 batch", 1080, 1920),
+     ("i420 batch", 2160, 3840)],
+)
 @pytest.mark.parametrize("gray", [True, False])
-def test_yuv420_kernel_bitwise_plain(cuda, h, w, gray):
+def test_yuv420_kernel_bitwise_plain(cuda, layout, h, w, gray):
+    """Offset luma views take the kernel's scalar path, ``i420_planes`` of a fresh batch (the main path's
+    layout at 1080p and 4K) its 16-byte path; both bit for bit the plain version."""
     from pyorc_tpu_torch.io import nvdec
 
     g = torch.Generator(device=cuda).manual_seed(h)
-    y = torch.randint(0, 256, (3, h, w + 6), dtype=torch.uint8, device=cuda, generator=g)[:, :, 2 : w + 2]
-    uv = torch.randint(0, 256, (3, h // 2, w), dtype=torch.uint8, device=cuda, generator=g)
-    u, v = uv[:, :, 0::2], uv[:, :, 1::2]  # NV12's interleaved chroma: a column stride of 2
-    before = piv_kernels.LAUNCHES[nvdec.KERNEL]
-    with pytest.raises(ValueError, match="contiguous"):
-        nvdec.yuv420_to_frames(y, u, v, gray)  # the wrapper takes rows of unit stride only
-    u, v = u.contiguous(), v.contiguous()
+    if layout == "i420 batch":
+        batch = torch.randint(0, 256, (3, h * w * 3 // 2), dtype=torch.uint8, device=cuda, generator=g)
+        y, u, v = nvdec.i420_planes(batch, h, w)
+    else:
+        y = torch.randint(0, 256, (3, h, w + 6), dtype=torch.uint8, device=cuda, generator=g)[:, :, 2 : w + 2]
+        uv = torch.randint(0, 256, (3, h // 2, w), dtype=torch.uint8, device=cuda, generator=g)
+        u, v = uv[:, :, 0::2], uv[:, :, 1::2]  # NV12's interleaved chroma: a column stride of 2
+        with pytest.raises(ValueError, match="contiguous"):
+            nvdec.yuv420_to_frames(y, u, v, gray)  # the wrapper takes rows of unit stride only
+        u, v = u.contiguous(), v.contiguous()
+    before, paths = piv_kernels.LAUNCHES[nvdec.KERNEL], dict(nvdec.PATHS)
     got = nvdec.yuv420_to_frames(y, u, v, gray)
     assert piv_kernels.LAUNCHES[nvdec.KERNEL] == before + 1 and piv_kernels.KERNEL_ROUTE[nvdec.KERNEL] == "cuda"
+    path = "16-byte" if layout == "i420 batch" else "scalar"
+    assert nvdec.PATHS == {**paths, path: paths[path] + 1}
     assert torch.equal(got, nvdec.yuv420_to_frames_plain(y, u, v, gray))
 
 

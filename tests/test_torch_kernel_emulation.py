@@ -62,6 +62,13 @@ struct alignas(8) float2 {
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -123,8 +130,46 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+// a load or store of a T on an address that is not a multiple of its size fails the launch, as on the
+// card (cudaErrorMisalignedAddress)
+inline bool emu_aligned(const void* p, size_t n) {
+    if (reinterpret_cast<uintptr_t>(p) % n == 0) return true;
+    emu_error = 716;
+    return false;
+}
 template <class T>
-inline T __ldg(const T* p) { return *p; }
+inline T __ldg(const T* p) {
+    T v{};
+    if (emu_aligned(p, alignof(T))) std::memcpy(&v, p, sizeof(T));
+    return v;
+}
+template <class T>
+inline void __stwb(T* p, T v) {
+    if (emu_aligned(p, alignof(T))) std::memcpy(p, &v, sizeof(T));
+}
+
+// prmt's default mode: byte n of the result is byte (s >> 4n) & 7 of (y << 32 | x)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const uint64_t b = (uint64_t)y << 32 | x;
+    unsigned r = 0;
+    for (int n = 0; n < 4; ++n) r |= (unsigned)(b >> 8 * ((s >> 4 * n) & 7) & 255) << 8 * n;
+    return r;
+}
+// Hopper's DPX add-min-relu on each s16 half: max(min(a + b, c), 0)
+inline unsigned __viaddmin_s16x2_relu(unsigned a, unsigned b, unsigned c) {
+    unsigned r = 0;
+    for (int i = 0; i < 2; ++i) {
+        const int x = (int16_t)(a >> 16 * i) + (int16_t)(b >> 16 * i), m = (int16_t)(c >> 16 * i);
+        r |= (unsigned)(uint16_t)std::max(std::min(x, m), 0) << 16 * i;
+    }
+    return r;
+}
+// dp2a: the u16 halves of a by two bytes of b (its low two: lo, its high two: hi), plus c
+inline unsigned emu_dp2a(unsigned a, unsigned b, unsigned c) {
+    return c + (a & 0xffff) * (b & 0xff) + (a >> 16) * ((b >> 8) & 0xff);
+}
+inline unsigned __dp2a_lo(unsigned a, unsigned b, unsigned c) { return emu_dp2a(a, b, c); }
+inline unsigned __dp2a_hi(unsigned a, unsigned b, unsigned c) { return emu_dp2a(a, b >> 16, c); }
 
 template <class T>
 inline T emu_shfl_xor(std::vector<T>& lanes, T v, int o) {

@@ -296,14 +296,16 @@ def test_decode_modules_import_without_cv2():
     assert proc.stdout.startswith("ok")
 
 
-def test_kernel_code_on_host_threads(tmp_path):
-    """``csrc/nv12.cu`` compiled as host C++ against the emulation's stand-in runtime, launched through
-    its C entry point on CPU tensors: bit for bit its plain version, gray and RGB, NV12 and I420 layouts."""
+@pytest.fixture(scope="module")
+def host_nv12(tmp_path_factory):
+    """``csrc/nv12.cu`` compiled as host C++ against the emulation's stand-in runtime, in which a vector
+    load or store off its size's boundary fails the launch as on the card."""
     from test_torch_kernel_emulation import CUDA_RUNTIME_SHIM
 
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA source as host C++")
+    tmp_path = tmp_path_factory.mktemp("nv12")
     (tmp_path / "cuda_runtime.h").write_text(CUDA_RUNTIME_SHIM)
     src = (ROOT / "pyorc_tpu_torch" / "csrc" / "nv12.cu").read_text()
     src, n = re.subn(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", r"emu_launch(\2, [&]() { \1(\3); });", src, flags=re.S)
@@ -316,17 +318,130 @@ def test_kernel_code_on_host_threads(tmp_path):
     lib = ctypes.CDLL(str(lib_path))
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.yuv420_convert_launch.argtypes = [vp, i64, i, vp, vp, i64, i, i, i, i, i, vp, i, vp]
-    rng = np.random.default_rng(5)
-    n, h, w = 2, 18, 34
-    y = torch.as_tensor(rng.integers(0, 256, (n, h + 2, w + 6), dtype=np.uint8))[:, 1 : h + 1, 2 : w + 2]
-    uv = torch.as_tensor(rng.integers(0, 256, (n, h // 2, w), dtype=np.uint8))  # NV12: U, V interleaved
-    u, v = uv[:, :, 0::2], uv[:, :, 1::2]
+    lib.yuv420_convert_path.argtypes = [vp, i64, i, vp, vp, i64, i, i, i, vp]
+    return lib
+
+
+def _layout(kind, rng, n, h, w):
+    """(y, u, v, c_frame, c_pitch, c_step) of random planes laid out as ``kind``."""
+    def rand(*shape):
+        return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8))
+
+    if kind.startswith("i420 batch"):  # libavcodec's planes back to back, as LibavVideoReader uploads them
+        pad = 8 if kind.endswith("offset") else 0
+        y, u, v = nvdec.i420_planes(rand(n, h * w * 3 // 2 + pad)[:, pad:], h, w)
+        return y, u, v, u.stride(0), u.stride(1), 1
+    if kind == "i420 odd pitch":
+        y = rand(n, h, w + 3)[:, :, :w]
+        u, v = rand(n, h // 2, w // 2 + 1)[..., : w // 2], rand(n, h // 2, w // 2 + 1)[..., : w // 2]
+        return y, u, v, u.stride(0), u.stride(1), 1
+    uv = rand(n, h // 2, w)  # NV12: U, V interleaved
+    y = rand(n, h + 2, w + 6)[:, 1 : h + 1, 2 : w + 2] if kind == "nv12 offset view" else rand(n, h, w)
+    return y, uv[:, :, 0::2], uv[:, :, 1::2], uv.stride(0), uv.stride(1), 2
+
+
+@pytest.mark.parametrize(
+    "kind,h,w,path",
+    [
+        ("i420 batch", 18, 32, 1),
+        ("i420 batch", 6, 4128, 1),  # 258 strips a row: two blocks span it
+        ("nv12", 18, 48, 1),
+        ("i420 batch", 18, 34, 0),  # a partial last strip
+        ("i420 batch", 18, 40, 0),
+        ("i420 batch", 242, 322, 0),  # clip (c)'s size
+        ("i420 batch offset", 18, 32, 0),
+        ("i420 odd pitch", 18, 32, 0),
+        ("nv12 offset view", 18, 34, 0),
+    ],
+)
+def test_kernel_code_on_host_threads(host_nv12, kind, h, w, path):
+    """The kernel's code through its C entry point on CPU tensors: the access path the layout takes
+    (1: 16-byte vectors, 0: bytes), and bit for bit its plain version, gray and RGB."""
+    n = 2
+    y, u, v, c_frame, c_pitch, c_step = _layout(kind, np.random.default_rng(h * w), n, h, w)
     for gray in (True, False):
         out = torch.empty((n, h, w) if gray else (n, h, w, 3), dtype=torch.uint8)
-        rc = lib.yuv420_convert_launch(y.data_ptr(), y.stride(0), y.stride(1), u.data_ptr(), v.data_ptr(),
-                                       uv.stride(0), uv.stride(1), 2, n, h, w, out.data_ptr(), int(gray), None)
-        assert rc == 0
+        planes = (y.data_ptr(), y.stride(0), y.stride(1), u.data_ptr(), v.data_ptr(), c_frame, c_pitch, c_step)
+        assert host_nv12.yuv420_convert_path(*planes, w, out.data_ptr()) == path
+        assert host_nv12.yuv420_convert_launch(*planes, n, h, w, out.data_ptr(), int(gray), None) == 0
         assert torch.equal(out, nvdec.yuv420_to_frames_plain(y, u, v, gray))
     bad = torch.empty((1, 3, 4), dtype=torch.uint8)
-    assert lib.yuv420_convert_launch(y.data_ptr(), 0, 4, u.data_ptr(), v.data_ptr(), 0, 2, 1, 1, 3, 4,
-                                     bad.data_ptr(), 1, None) != 0  # an odd height is refused
+    assert host_nv12.yuv420_convert_launch(y.data_ptr(), 0, 4, u.data_ptr(), v.data_ptr(), 0, 2, 1, 1, 3, 4,
+                                           bad.data_ptr(), 1, None) != 0  # an odd height is refused
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (2160, 3840)])
+def test_kernel_path_of_the_main_paths_batches(host_nv12, h, w):
+    """``i420_planes`` of a fresh batch at 1080p and 4K (frame strides 3,110,400 and 12,441,600 B) takes
+    the 16-byte path; the same planes moved by 8 B, an output off 16 B, or NV12 chroma whose V is not
+    U + 1, take the scalar one."""
+    batch = torch.empty((2, h * w * 3 // 2), dtype=torch.uint8)  # its strides only: no frame is converted
+    ys, us, vs = nvdec.i420_planes(batch, h, w)
+    assert ys.stride() == us.stride()[:1] + (w, 1) and us.stride() == (h * w * 3 // 2, w // 2, 1)
+    assert ys.stride(0) == {1080: 3_110_400, 2160: 12_441_600}[h]
+    base, out = 1 << 20, 1 << 30  # the caching allocator's blocks start on 512 B
+
+    def path(y=base, u=base + h * w, v=base + h * w * 5 // 4, o=out, c_step=1, c_pitch=w // 2):
+        return host_nv12.yuv420_convert_path(y, ys.stride(0), w, u, v, us.stride(0), c_pitch, c_step, w, o)
+
+    assert path() == 1
+    assert path(y=base + 8, u=base + 8 + h * w, v=base + 8 + h * w * 5 // 4) == 0
+    assert path(o=out + 8) == 0
+    assert path(u=base + h * w, v=base + h * w + 1, c_step=2, c_pitch=w) == 1
+    assert path(u=base + h * w, v=base + h * w + 2, c_step=2, c_pitch=w) == 0
+
+
+SASS_LISTING = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_123yuv420_to_frames_kernelEPKhliS1_S1_liiiiPhiiii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, UR4, PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/              @!P1 BRA `(.L_x_0) ;
+        /*0040*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0050*/                   LDG.E.64 R8, desc[UR4][R6.64] ;
+        /*0060*/              @!P2 BRA `(.L_x_1) ;
+        /*0070*/                   IMAD R10, R4, R5, R6 ;
+        /*0080*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0090*/                   STG.E.128 desc[UR4][R12.64], R8 ;
+        /*00a0*/                   EXIT ;
+.L_x_1:
+        /*00b0*/                   IMAD R10, R4, R5, R6 ;
+        /*00c0*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*00d0*/                   STG.E.128 desc[UR4][R2.64+0x10], R4 ;
+        /*00e0*/                   STG.E.128 desc[UR4][R2.64+0x20], R4 ;
+        /*00f0*/                   STG.E.128 desc[UR4][R12.64], R4 ;
+        /*0100*/                   STG.E.128 desc[UR4][R12.64+0x10], R4 ;
+        /*0110*/                   STG.E.128 desc[UR4][R12.64+0x20], R4 ;
+        /*0120*/                   EXIT ;
+.L_x_0:
+        /*0130*/                   LDG.E.U8 R4, desc[UR4][R2.64] ;
+        /*0140*/                   STG.E.U8 desc[UR4][R6.64], R4 ;
+        /*0150*/                   EXIT ;
+        /*0160*/                   BRA 0x160;
+        /*0170*/                   NOP;
+		Function : _Z5otherPf
+        /*0000*/                   STG.E.128 desc[UR4][R4.64], R2 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_chip_smoke_sass_vector_paths():
+    """chip_smoke's count of the conversion's 16-byte path: only the named kernel; basic blocks from labels,
+    branches and exits (a predicated EXIT or BRA falls through); for each number of 16-byte stores on a
+    path (gray 2, RGB 6), the fewest instructions from the entry through such a store to an EXIT, and
+    those over the strip's 32 pixels; the byte path and the self-branch after the last EXIT left out."""
+    (got,) = chip_smoke.sass_vector_paths(SASS_LISTING)
+    assert got == {"function_instructions": 23, "vector_paths": [
+        {"stores": 2, "instructions": 11, "per_pixel": 0.34}, {"stores": 6, "instructions": 15, "per_pixel": 0.47}]}
+
+
+@pytest.mark.parametrize("gray,ms", [(True, 0.0464), (False, 0.0836)])
+def test_conversion_bound_is_the_bytes(gray, ms):
+    """The conversion's bound at the lazy chain's batch (30 frames of 1080p): the bytes, 2.5 B a pixel
+    gray and 4.5 B RGB at the card's memory rate, above its integer instructions' time."""
+    from pyorc_tpu_torch.ops import roofline
+
+    bound, by = roofline.yuv420_bound(30, 1080, 1920, gray)
+    assert by == "bytes" and bound == pytest.approx(ms, abs=5e-5)
+    assert bound == pytest.approx(1e3 * 30 * 1080 * 1920 * (2.5 if gray else 4.5) / roofline.PEAK_HBM_BYTES)
