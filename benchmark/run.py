@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""The benchmark of ``pyorc_tpu_torch``: one cell, run once, one JSON line.
+
+    python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: camera, frames, motion, PIV
+settings, masks, cross-section, the limits of the comparison) and a traffic mix (``workloads/<traffic>.json``:
+frames a video, the ring the videos are cut from). The run
+
+1. makes the ring of the cell's videos on the card from ``--seed`` (``traffic.make_ring``) and runs one
+   warm-up video (set-up, ``setup_s``, from the process's start);
+2. measures for ``--seconds``: one client, closed loop, each video submitted when the previous one has given
+   its discharge, through the port's chain (``chain.run_video``) from a ``LazyFrames`` over the ring;
+3. with ``--trace 1`` records the window with ``torch.profiler``;
+4. once the window has closed and the program's state is freed, works every distinct video out again with
+   the plain reference (``reference/``) and compares every completed video's outputs with it, and the
+   projected frames that the timed path handed to ``get_piv`` at positions drawn from the seed;
+5. prints each number compared beside its limit on standard error, and the result as the last line of
+   standard output: the cell's end-to-end metrics (``--trace 0``) or its per-layer metrics (``--trace 1``),
+   each taken by the reader ``metrics/<name>.py`` that ``BENCHMARK.json`` names.
+
+It needs a CUDA card (it never falls back to the CPU) and the port beside ``benchmark/``; every build and
+kernel cache stays inside the checkout.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import gc  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
+import random  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "pyorc_tpu")  # whole top-level module names the run may not load
+FRAME_CHECKS = 4  # projected frames of each distinct video held to the reference, drawn from the seed
+HOST_THREADS = 4  # host threads of torch's and the BLAS/OpenMP pools, whatever the machine's core count
+
+
+def _caches(root: Path) -> None:
+    """Every build and kernel cache of the program at a fixed path inside the checkout."""
+    build = root / "build"
+    os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")
+    os.environ["TRITON_CACHE_DIR"] = str(build / "triton_cache")
+    os.environ["CUDA_CACHE_PATH"] = str(build / "cuda_cache")
+
+
+def steady_host() -> None:
+    """The host's thread pools at a fixed size, before numpy or torch is imported: the client is one process,
+    whose main thread and the lazy chain's prefetch thread keep cores of their own beside the pools."""
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        os.environ[var] = str(HOST_THREADS)
+
+
+def host_clock() -> dict:
+    """The process's CPU seconds and involuntary context switches, and the machine's CPU seconds stolen by
+    its hypervisor (``/proc/stat``; nothing where it is not there): readings of the host's part in a window."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    out = {"cpu_s": ru.ru_utime + ru.ru_stime, "involuntary_switches": ru.ru_nivcsw}
+    try:
+        fields = Path("/proc/stat").read_text().split("\n", 1)[0].split()
+        out["steal_s"] = int(fields[8]) / os.sysconf("SC_CLK_TCK")
+    except (OSError, IndexError, ValueError):
+        pass
+    return out
+
+
+def load_cell(root: Path, name: str) -> dict:
+    """The cell ``name`` of ``root/BENCHMARK.json``: its entry, configuration, traffic and metrics."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise SystemExit(f"no workload {name!r} in BENCHMARK.json (have {sorted(cells)})")
+    entry = cells[name]
+    configs = {c["name"]: c for c in bench["configs"]}
+    cfg = json.loads((root / configs[entry["config"]]["file"]).read_text())
+    traffic = json.loads((root / bench["paths"][0] / "workloads" / f"{entry['traffic']}.json").read_text())
+    e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
+    reported = {m["name"] for m in e2e}
+    layer = [m for m in bench["per_layer"]
+             if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
+    return {"entry": entry, "cfg": cfg, "traffic": traffic, "end_to_end": e2e, "per_layer": layer,
+            "metrics_dir": root / bench["paths"][0] / "metrics"}
+
+
+def reader(metrics_dir: Path, name: str):
+    """The ``read(ctx)`` of ``metrics/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", metrics_dir / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def forbidden_modules() -> list:
+    return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+
+
+def _counters():
+    from pyorc_tpu_torch import _device
+    from pyorc_tpu_torch.ops import piv_kernels
+
+    return dict(_device.COPY_BYTES), dict(piv_kernels.LAUNCHES)
+
+
+def _quartiles(values) -> list:
+    """Least, quartiles and largest of ``values`` (nothing for an empty list)."""
+    import statistics
+
+    if len(values) < 2:
+        return list(values)
+    return [min(values), *statistics.quantiles(values, n=4), max(values)]
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, program=None, min_videos: int = 0) -> dict:
+    """Run one cell once on ``device``; returns the result line's fields and the numbers compared.
+
+    ``program`` replaces ``chain.run_video`` (a run with a fault planted, or with the plain reference in the
+    program's place); ``min_videos`` videos are measured however short the window (the readings of
+    ``readings.py``).
+    """
+    import numpy as np
+    import torch
+
+    import chain
+    import devtrace
+    import traffic as traffic_mod
+    from reference import compare
+
+    cfg, traffic = cell["cfg"], cell["traffic"]
+    run_video = chain.run_video if program is None else program
+    ring = traffic_mod.make_ring(cfg, traffic, seed, device)
+    starts = traffic_mod.video_starts(traffic)
+    n = traffic["frames_per_video"]
+    cc = chain.camera_config(cfg)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    # the projected frames held to the reference: FRAME_CHECKS positions of each distinct video, from the seed
+    rng = random.Random(seed)
+    sample = [sorted(rng.sample(range(n), min(FRAME_CHECKS, n))) for _ in starts]
+    warm = run_video(traffic_mod.DeviceFrameSource(ring, starts[0], n), cc, cfg, sample[0])
+    del warm
+    sync()
+    setup_s = time.perf_counter() - T_START
+    gc.collect()
+    gc.freeze()  # set-up's objects out of the collector's way: a collection in the window walks the window's own
+
+    videos, answers, kept = [], [], {}
+    prof = devtrace.profiler(device) if trace else None
+    if prof is not None:
+        prof.start()
+    host0 = host_clock()
+    t0 = time.perf_counter()
+    with devtrace.window():
+        k = 0
+        while time.perf_counter() - t0 < seconds or k < min_videos:
+            slot = k % len(starts)
+            copy0, launch0 = _counters()
+            tv = time.perf_counter()
+            out = run_video(traffic_mod.DeviceFrameSource(ring, starts[slot], n), cc, cfg, sample[slot])
+            end = time.perf_counter()
+            copy1, launch1 = _counters()
+            videos.append({"slot": slot, "n_frames": n, "wall_s": end - tv, "end_s": end - t0,
+                           "spans": out["spans"], "copy": _delta(copy1, copy0), "launches": _delta(launch1, launch0)})
+            answers.append((slot, compare.video_answers(out)))
+            kept[slot] = out["frames"]
+            del out
+            k += 1
+    sync()
+    host = {k: v - host0[k] for k, v in host_clock().items()}
+    gc.unfreeze()
+    trace_data = None
+    if prof is not None:
+        prof.stop()
+        trace_data = devtrace.read(prof)
+        del prof
+    on_card = torch.device(device).type == "cuda"
+    memory_peak = int(torch.cuda.max_memory_allocated(device)) if on_card else 0
+
+    # the check: the program's state freed, the reference in blocks on the same device
+    checks = [(slot, sample[slot], None if frames is None else frames.cpu()) for slot, frames in kept.items()]
+    del kept
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    points = traffic_mod.transect_points(cfg)
+    refs, frame_checks = {}, []
+    for slot, idx, got in checks:
+        ref = compare.reference_video(ring[starts[slot] : starts[slot] + n], cfg, points)
+        frame_checks.append((got, ref.pop("proj")[torch.as_tensor(idx, device=ring.device)].cpu()))
+        refs[slot] = ref
+    numbers = compare.compare(answers, refs, frame_checks, cfg)
+    reference_s = time.perf_counter() - t_ref
+    correct = bool(answers) and compare.verdict(numbers, cfg["limits"])
+
+    ctx = {"cfg": cfg, "traffic": traffic, "videos": videos, "trace": trace_data, "setup_s": setup_s,
+           "window_s": seconds}
+    wanted = cell["per_layer"] if trace else cell["end_to_end"]
+    metrics = {}
+    for m in wanted:
+        value = reader(cell["metrics_dir"], m["name"])(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    dev = {"platform": "gpu" if on_card else "cpu",
+           "kind": torch.cuda.get_device_name(torch.device(device)) if on_card else "cpu",
+           "count": 1, "memory_peak_bytes": memory_peak}
+    if trace_data is not None:
+        dev.update(busy_s=trace_data["busy_s"], window_s=trace_data["window_s"])
+    result = {"correct": correct, "attempted": len(videos), "failed": 0, "metrics": metrics, "device": dev}
+    if trace_data is not None:
+        result["breakdown"] = devtrace.breakdown(trace_data)
+    walls = [v["wall_s"] for v in videos]
+    if trace_data is not None:  # the lazy chain's spans run in its prefetch thread: two threads or more
+        host["span_threads"] = trace_data["span_threads"]
+    info = {"videos": len(videos), "frames": n * len(videos), "setup_s": setup_s, "host": host,
+            "video_s_median": float(np.median(walls)) if walls else math.nan, "reference_s": reference_s,
+            "window_end_s": videos[-1]["end_s"] if videos else math.nan,
+            "spans": {k: _quartiles([v[k] if k == "wall_s" else v["spans"][k] for v in videos])
+                      for k in ("wall_s",) + chain.SPANS}}
+    # a number that is not finite (an answer missing, a mask that differs) goes out as null: the line stays JSON
+    result["checks"] = {k: {"value": numbers[k] if math.isfinite(numbers[k]) else None, "limit": cfg["limits"][k]}
+                        for k in compare.NUMBERS}
+    return {"result": result, "numbers": numbers, "info": info}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--workload", required=True)
+    parser.add_argument("--seed", type=int, required=True)
+    parser.add_argument("--seconds", type=float, required=True)
+    parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = parser.parse_args(argv)
+
+    _caches(ROOT)
+    steady_host()
+    sys.path.insert(0, str(HERE))
+    sys.path.insert(1, str(ROOT))
+    cell = load_cell(ROOT, args.workload)
+    import torch
+
+    chips = cell["entry"]["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"benchmark: needs {chips} CUDA card(s); torch.cuda.is_available() is {torch.cuda.is_available()}, "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} found", file=sys.stderr)
+        return 2
+    import pyorc_tpu_torch
+
+    pyorc_tpu_torch.set_device("cuda")
+    torch.set_num_threads(HOST_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda")
+    found = forbidden_modules()
+    if found:
+        print(f"benchmark: the run loaded {', '.join(found)}: the port may not load JAX or the JAX package",
+              file=sys.stderr)
+        return 3
+    info = out["info"]
+    print(f"benchmark: {args.workload} seed {args.seed}: {info['videos']} videos ({info['frames']} frames), "
+          f"setup {info['setup_s']:.3f} s, median video {info['video_s_median']:.4f} s, last completion "
+          f"{info['window_end_s']:.3f} s, reference and comparison {info['reference_s']:.3f} s", file=sys.stderr)
+    print("benchmark: host over the window: " + ", ".join(f"{k} {v:.6g}" for k, v in info["host"].items()),
+          file=sys.stderr)
+    for name, q in info["spans"].items():
+        print(f"benchmark: {name} quartiles [s] {' '.join(f'{v:.4f}' for v in q)}", file=sys.stderr)
+    for name, value in out["numbers"].items():
+        print(f"check {name} {value!r} limit {out['result']['checks'][name]['limit']!r}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(out["result"], allow_nan=False))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
