@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import _device, const, helpers, ndx
+from .. import _device, _trace, const, helpers, ndx
 from .._device import get_device, to_device, to_host, torch_dtype
 from ..ops import filters as flt
 from ..ops import ortho as ortho_ops
@@ -72,16 +72,17 @@ class ChainOp:
     pixels on a batch cropped ``halo`` pixels beyond what later ops read, so
     ``project`` may crop before the upload. ``halo=None`` marks an op that
     needs the whole frame (normalize's per-frame extrema, the projection).
-    Each call is a ``torch.profiler`` span named ``lazy:<name>``.
+    Each call is a span (:mod:`pyorc_tpu_torch._trace`) named ``lazy:<name>``.
     """
 
     def __init__(self, fn, name: str, halo: Optional[int] = None):
         self.fn = fn
         self.name = name
         self.halo = halo
+        self._span = f"lazy:{name}"
 
     def __call__(self, batch: torch.Tensor) -> torch.Tensor:
-        with torch.profiler.record_function(f"lazy:{self.name}"):
+        with _trace.span(self._span):
             return self.fn(batch)
 
 
@@ -189,9 +190,10 @@ class Frames(ORCBase):
         time_interval = round(n / samples)
         if time_interval == 0:
             raise ValueError(f"Amount of frames is too small to provide {samples} samples")
-        sampled = np.asarray(self._obj.data[::time_interval]).astype(np.float32)
-        mean_host = sampled.mean(axis=0).astype(np.float32)
-        mean = PerDevice(lambda device: to_device(mean_host, device), get_device())
+        with _trace.span("frames:normalize_mean"):
+            sampled = np.asarray(self._obj.data[::time_interval]).astype(np.float32)
+            mean_host = sampled.mean(axis=0).astype(np.float32)
+            mean = PerDevice(lambda device: to_device(mean_host, device), get_device())
         # each frame's rescale extrema are taken on the device over the whole
         # frame, so a lazy chain with normalize uploads whole frames (halo
         # None): at 4K this streams 6x faster than the JAX package's extrema
@@ -274,34 +276,36 @@ class Frames(ORCBase):
         cc = copy.deepcopy(self.camera_config)
         if resolution is not None:
             cc.resolution = resolution
-        shape = cc.shape
-        y = np.flipud(np.linspace(cc.resolution / 2, cc.resolution * (shape[0] - 0.5), shape[0]))
-        x = np.linspace(cc.resolution / 2, cc.resolution * (shape[1] - 0.5), shape[1])
-        cols, rows = np.meshgrid(np.arange(len(x)), np.arange(len(y)))
-        xs, ys = helpers.get_xs_ys(cols, rows, cc.transform)
-        if hasattr(cc, "crs"):
-            lons, lats = helpers.get_lons_lats(xs, ys, cc.crs)
-        else:
-            lons, lats = None, None
-        coords = {"y": y, "x": x}
-        z = cc.get_z_a(self.h_a)
-        maps = ortho_ops.build_ortho_maps(cc, x, y, z, reducer=reducer)
-        is_rgb = "rgb" in self._obj.dims
-        src_dtype = self._obj.dtype
-        data = self._obj.data
-        lazy = isinstance(data, LazyFrames)
-        crop = None
-        if lazy and data._crop is None and _upload_crop_on() and all(op.halo is not None for op in data._ops):
-            box = ortho_ops.source_bbox(maps)
-            if box is not None:
-                h, w = maps.shape_in
-                halo = sum(op.halo for op in data._ops)
-                r0, r1 = max(box[0] - halo, 0), min(box[1] + halo, h)
-                c0, c1 = max(box[2] - halo, 0), min(box[3] + halo, w)
-                if (r1 - r0) * (c1 - c0) <= 0.95 * h * w:
-                    maps = ortho_ops.crop_maps(maps, r0, c0, r1 - r0, c1 - c0)
-                    crop = (r0, r1, c0, c1)
-        dmaps = PerDevice(lambda device: ortho_ops.device_maps(maps, device), get_device())
+        with _trace.span("frames:project_grid"):
+            shape = cc.shape
+            y = np.flipud(np.linspace(cc.resolution / 2, cc.resolution * (shape[0] - 0.5), shape[0]))
+            x = np.linspace(cc.resolution / 2, cc.resolution * (shape[1] - 0.5), shape[1])
+            cols, rows = np.meshgrid(np.arange(len(x)), np.arange(len(y)))
+            xs, ys = helpers.get_xs_ys(cols, rows, cc.transform)
+            if hasattr(cc, "crs"):
+                lons, lats = helpers.get_lons_lats(xs, ys, cc.crs)
+            else:
+                lons, lats = None, None
+            coords = {"y": y, "x": x}
+        with _trace.span("frames:project_maps"):
+            z = cc.get_z_a(self.h_a)
+            maps = ortho_ops.build_ortho_maps(cc, x, y, z, reducer=reducer)
+            is_rgb = "rgb" in self._obj.dims
+            src_dtype = self._obj.dtype
+            data = self._obj.data
+            lazy = isinstance(data, LazyFrames)
+            crop = None
+            if lazy and data._crop is None and _upload_crop_on() and all(op.halo is not None for op in data._ops):
+                box = ortho_ops.source_bbox(maps)
+                if box is not None:
+                    h, w = maps.shape_in
+                    halo = sum(op.halo for op in data._ops)
+                    r0, r1 = max(box[0] - halo, 0), min(box[1] + halo, h)
+                    c0, c1 = max(box[2] - halo, 0), min(box[3] + halo, w)
+                    if (r1 - r0) * (c1 - c0) <= 0.95 * h * w:
+                        maps = ortho_ops.crop_maps(maps, r0, c0, r1 - r0, c1 - c0)
+                        crop = (r0, r1, c0, c1)
+            dmaps = PerDevice(lambda device: ortho_ops.device_maps(maps, device), get_device())
 
         def project_chunk(f):
             if is_rgb:

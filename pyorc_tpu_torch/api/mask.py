@@ -13,7 +13,7 @@ import warnings
 
 import numpy as np
 
-from .. import helpers, ndx
+from .. import _trace, helpers, ndx
 
 V_X, V_Y, S2N, CORR = "v_x", "v_y", "s2n", "corr"
 
@@ -71,7 +71,7 @@ def _base_mask(time_allowed=False, time_required=False, multi_timestep_required=
                     ref._obj[var] = ref._obj[var].where(mask)
             return mask
 
-        return wrapper_func
+        return _trace.spanned(f"mask:{mask_func.__name__}")(wrapper_func)
 
     return decorator_func
 
@@ -83,6 +83,7 @@ class _Velocimetry_MaskMethods:
         self.velocimetry = velocimetry
         self._obj = velocimetry._obj
 
+    @_trace.spanned("mask:apply")
     def __call__(self, mask, inplace=False, *args, **kwargs):
         if not isinstance(mask, list):
             mask = [mask]

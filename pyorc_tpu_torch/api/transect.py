@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import helpers, ndx
+from .. import _trace, helpers, ndx
 from .orcbase import ORCBase
 
 __all__ = ["Transect"]
@@ -122,6 +122,7 @@ class Transect(ORCBase):
         discharge = self._obj[q_name].fillna(0.0).integrate(coord="scoords")
         return discharge / self.wetted_surface
 
+    @_trace.spanned("transect:river_flow")
     def get_river_flow(self, q_name: str = "q", discharge_name: str = "river_flow"):
         """Integrate q over the cross-section into river flow [m3 s-1]."""
         if q_name not in self._obj:
@@ -138,6 +139,7 @@ class Transect(ORCBase):
         discharge.name = "Q"
         self._obj[discharge_name] = discharge
 
+    @_trace.spanned("transect:get_q")
     def get_q(self, v_corr: float = 0.9, fill_method: str = "zeros") -> ndx.Dataset:
         """Depth-integrated velocity per point with gap filling. Reference transect.py:262-319."""
         assert fill_method in ["zeros", "log_fit", "log_interp", "interpolate"], (

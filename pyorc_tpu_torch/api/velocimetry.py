@@ -11,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from .. import const, helpers, ndx
+from .. import _trace, const, helpers, ndx
 from ..geom import aoi as aoi_mod
 from ..geom import crs as crs_mod
 from .mask import _Velocimetry_MaskMethods
@@ -81,6 +81,7 @@ class Velocimetry(ORCBase):
         for k in const.ENCODE_VARS:
             self._obj.encoding[k] = dict(enc_pars)
 
+    @_trace.spanned("transect:get_transect")
     def get_transect(
         self,
         x,

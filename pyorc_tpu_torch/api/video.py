@@ -45,7 +45,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .. import const, ndx
+from .. import _trace, const, ndx
 from .._device import PinnedUploader, get_device, to_device, to_host
 from ..io import video_reader as vr
 from .cameraconfig import CameraConfig, get_camera_config, load_camera_config
@@ -103,8 +103,12 @@ class LazyFrames:
     arrays, or device tensors on a card route).
     """
 
-    def __init__(self, video, method: str, indices: np.ndarray, frame_shape, dtype=np.uint8, ops=None, crop=None):
+    def __init__(
+        self, video, method: str, indices: np.ndarray, frame_shape, dtype=np.uint8, ops=None, crop=None, video_id=None,
+    ):
         self._video = video
+        # the video's id in the port's spans (:mod:`pyorc_tpu_torch._trace`): drawn by a root, kept by its views
+        self._video_id = _trace.new_video() if video_id is None else video_id
         self._method = method
         self._indices = np.asarray(indices)  # positions into video.frame_number
         self._frame_shape = tuple(frame_shape)
@@ -114,7 +118,7 @@ class LazyFrames:
 
     def _view(self, indices=None, **changes) -> "LazyFrames":
         kwargs = dict(
-            frame_shape=self._frame_shape, dtype=self.dtype, ops=self._ops, crop=self._crop,
+            frame_shape=self._frame_shape, dtype=self.dtype, ops=self._ops, crop=self._crop, video_id=self._video_id,
         )
         kwargs.update({k: v for k, v in changes.items() if v is not None})
         return LazyFrames(self._video, self._method, self._indices if indices is None else indices, **kwargs)
@@ -142,7 +146,7 @@ class LazyFrames:
 
     def read_batch(self, i0: int, i1: int, uploader: Optional[PinnedUploader] = None):
         """Frames [i0:i1] (positions within this view): a device tensor when the view has ops."""
-        with torch.profiler.record_function("lazy:decode"):
+        with _trace.span("lazy:decode"):
             # a card route decodes through the uploader's side stream; a frame source's protocol is
             # ``_decode_frames(positions, method)``, with ``uploader=`` only where there is one (a card)
             extra = {} if uploader is None else {"uploader": uploader}
@@ -152,7 +156,7 @@ class LazyFrames:
         if self._crop is not None:
             r0, r1, c0, c1 = self._crop
             out = out[:, r0:r1, c0:c1]
-        with torch.profiler.record_function("lazy:upload"):
+        with _trace.span("lazy:upload"):
             if not torch.is_tensor(out):  # a card route's frames are on the device already
                 out = uploader.upload(out) if uploader is not None else to_device(out)
         for fn in self._ops:

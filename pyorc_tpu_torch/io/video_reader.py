@@ -17,6 +17,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import _trace
+
 __all__ = ["color_scale", "get_frame", "get_time_frames", "get_rotation_code", "warp_affine", "BatchPrefetcher"]
 
 
@@ -169,14 +171,15 @@ class BatchPrefetcher:
         self._thread.start()
 
     def _put(self, item) -> bool:
-        """Queue ``item``, waiting for room; False once close() was called."""
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=self._POLL_S)
-                return True
-            except queue.Full:
-                pass
-        return False
+        """Queue ``item``, waiting for room (the span ``prefetch:full``); False once close() was called."""
+        with _trace.span("prefetch:full"):
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(item, timeout=self._POLL_S)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
     def _worker(self):
         try:
@@ -191,7 +194,8 @@ class BatchPrefetcher:
     def __iter__(self):
         try:
             while True:
-                kind, item = self._queue.get()
+                with _trace.span("prefetch:wait"):  # the consumer blocked on the next batch
+                    kind, item = self._queue.get()
                 if kind == "done":
                     return
                 if kind == "err":

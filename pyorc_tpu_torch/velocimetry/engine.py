@@ -51,7 +51,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _device, ndx, parallel
+from .. import _device, _trace, ndx, parallel
 from .._device import get_device, to_device, to_host
 from ..api.video import LazyFrames
 from ..ops import multipass
@@ -150,10 +150,12 @@ def _run_chunk_oom_backoff(fn, span, merge=_concat_pairs):
     Mirrors the reference's shrinking-chunk retry (reference ffpiv.py:13-21):
     a ``torch.cuda.OutOfMemoryError`` retries the chunk's pairs as two halves,
     each with its halo (:meth:`Span.cut`), recursively, and joins the halves'
-    outputs with ``merge`` (by default: concatenated per-pair outputs).
+    outputs with ``merge`` (by default: concatenated per-pair outputs). Each
+    chunk run adds one to the counter ``engine:chunks`` (:mod:`pyorc_tpu_torch._trace`),
+    each half of a split too.
     """
     try:
-        return fn(span)
+        out = fn(span)
     except torch.cuda.OutOfMemoryError:
         if span.n_pairs < 2:
             raise
@@ -165,6 +167,8 @@ def _run_chunk_oom_backoff(fn, span, merge=_concat_pairs):
         left = _run_chunk_oom_backoff(fn, span.cut(0, mid), merge)
         right = _run_chunk_oom_backoff(fn, span.cut(mid, span.n_pairs), merge)
         return merge(left, right)
+    _trace.count("engine:chunks")
+    return out
 
 
 def _chunk_bounds(n_frames, chunksize):
