@@ -2,7 +2,8 @@
 
 The frames ``DataArray`` is built as the port's ``Video.get_frames`` builds it, over a ``LazyFrames`` on the
 benchmark's device frame source; then ``normalize`` -> ``project`` -> ``get_piv`` -> ``mask`` ->
-``get_transect`` -> ``get_q`` -> ``get_river_flow``. The camera is a nadir pinhole whose ground control
+``get_transect`` -> ``get_q`` -> ``get_river_flow`` (:func:`run_chain`, which a route whose frames come from
+elsewhere runs on its own frames ``DataArray``). The camera is a nadir pinhole whose ground control
 points and area of interest sit ``gcp_px`` and ``aoi_px`` inside the frame, so that a pixel is
 ``resolution`` m on the water plane; the cross-section runs across the flow over a parabolic bed.
 """
@@ -97,7 +98,14 @@ def keep_frames(proj, positions, kept: dict):
 
 
 def run_video(source, cc, cfg: dict, sample=()) -> dict:
-    """One video through the port's chain; returns its outputs and the spans' seconds.
+    """One video of a frame source through the port's chain: :func:`run_chain` over the frames that
+    :func:`frames_dataarray` gives."""
+    return run_chain(lambda: frames_dataarray(source, cc, cfg["fps"]), cfg, sample)
+
+
+def run_chain(get_frames, cfg: dict, sample=()) -> dict:
+    """The chain from the frames ``DataArray`` that ``get_frames()`` gives (called inside the span
+    ``chain_setup``) to the discharge; returns its outputs and the spans' seconds.
 
     Outputs: ``frames`` (the projected frames at the positions ``sample``, as ``get_piv`` read them;
     a frame it never read is missing), ``piv`` and ``masked`` (Datasets with ``v_x``, ``v_y``, ``corr``,
@@ -107,7 +115,7 @@ def run_video(source, cc, cfg: dict, sample=()) -> dict:
     piv_cfg = cfg["piv"]
     spans, kept = {}, {}
     with span(spans, "chain_setup"):
-        da = frames_dataarray(source, cc, cfg["fps"])
+        da = get_frames()
         proj = da.frames.normalize(samples=cfg["normalize_samples"]).frames.project()
     with span(spans, "get_piv"), keep_frames(proj.data, sample, kept):
         piv = proj.frames.get_piv(

@@ -1,9 +1,11 @@
 """The control of the comparison: the plain reference put in the program's place, in a lower precision.
 
-:func:`program` stands in for ``chain.run_video``: it works a video out with the reference at ``precision``
-(``PRECISION``, bfloat16: the step below the configuration's float32) and answers as the port's chain does, so that
-``run.run_cell`` holds it to the float32 reference exactly as it holds the port. Its numbers have to fail a
-limit; ``readings.py`` reads them on the card and ``tests/test_control.py`` at a small size on the CPU.
+:func:`program` stands in for a route's ``run_video`` whose answers are the port's PIV chain's: it works a video
+out with the route's ``reference_video`` at ``PRECISION`` (bfloat16: the step below the configuration's float32),
+from the frames that the route reads out of the video's source, and answers as the port's chain does, so that
+``run.run_cell`` holds it to the float32 reference exactly as it holds the port. A route hands it out as its
+``control_program()``. Its numbers have to fail a limit; ``readings.py`` reads them on the card and
+``tests/test_harness_reference.py`` at a small size on the CPU.
 """
 
 from __future__ import annotations
@@ -12,18 +14,15 @@ import time
 
 import numpy as np
 
-from reference import compare
-from traffic import transect_points
-
-
 PRECISION = "bfloat16"
 
 
-def program():
-    def run_video(source, cc, cfg, sample=()):
+def program(reference_video, frames_of):
+    """A ``run_video`` that answers with ``reference_video(frames_of(source), cfg, PRECISION)``."""
+
+    def run_video(source, setup, cfg, sample=()):
         t0 = time.perf_counter()
-        frames = source.ring.narrow(0, source.start, source.n_frames)
-        ref = compare.reference_video(frames, cfg, transect_points(cfg), PRECISION)
+        ref = reference_video(frames_of(source), cfg, PRECISION)
         res, dt = cfg["resolution"], ref["dt"][:, None, None]
         vx = (ref["u"].astype(np.float32) * np.float32(res) / dt).astype(np.float32)
         vy = (ref["v"].astype(np.float32) * np.float32(res) / dt).astype(np.float32)

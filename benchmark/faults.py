@@ -2,9 +2,9 @@
 
 Each fault is ``plant(setattr_, ensemble)``: it replaces one function of the port through ``setattr_`` (pytest's
 ``monkeypatch.setattr``, or :class:`Patches` here), for a cell whose PIV is the ensemble or multipass; the port,
-numpy and torch are imported only then. The CPU tests plant them at a small size
-(``tests/test_harness_faults.py``); ``readings.py --fault <name>`` reads them on the card at the cell's own
-size. One card: no exchange between chips to leave out.
+numpy and torch are imported only then. A route's ``FAULTS`` binds those its cells can have to a configuration.
+The CPU tests plant them at a small size (``tests/test_harness_faults.py``); ``readings.py --fault <name>`` reads
+them on the card at the cell's own size. One card: no exchange between chips to leave out.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Host time [ms] in the program's span ``frames:normalize_mean`` (``Frames.normalize``'s sampled frames read and
-brought down, their float32 mean on the host and its upload), the window's total over its videos, per video. Nothing
-where the program keeps no such record, dropped spans, or recorded another count of videos than the window's."""
+"""Host time [ms] in the program's span ``frames:normalize_mean`` (``Frames.normalize``'s sampled frames read as
+the chain's device batches and added one by one into a float32 frame on the device, divided there by their count:
+nothing comes down to the host), the window's total over its videos, per video. Nothing where the program keeps no
+such record, dropped spans, or recorded another count of videos than the window's."""
 
 
 def read(ctx):

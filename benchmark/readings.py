@@ -5,10 +5,11 @@
 
 For each of ``--seeds`` seeds the cell runs as ``run.py`` runs it, with a window of one pass over its
 distinct videos, and prints the numbers compared (the lower readings: sound runs of the program). For each of
-``--control-seeds`` seeds the plain reference in bfloat16 takes the program's place (``control.py``): the
-upper readings, which a limit must stay under. With ``--fault`` the program's seeds run with that fault of
-``faults.py`` planted (the readings of a fault at the cell's own size). Each reading is one JSON line on standard output and in
-``build/readings/<cell>.jsonl``. The benchmark's own runs never run the control.
+``--control-seeds`` seeds the plain reference in bfloat16 takes the program's place (the route's
+``control_program``): the upper readings, which a limit must stay under. With ``--fault`` the program's seeds run
+with that fault of the route's ``FAULTS`` planted (the readings of a fault at the cell's own size). Each reading is
+one JSON line on standard output and in ``build/readings/<cell>.jsonl``. The benchmark's own runs never run the
+control.
 """
 
 from __future__ import annotations
@@ -33,15 +34,17 @@ def main(argv=None) -> int:
     parser.add_argument("--seeds", type=int, default=12)
     parser.add_argument("--control-seeds", type=int, default=3)
     parser.add_argument("--first-seed", type=int, default=3_000_000_000)
-    parser.add_argument("--fault", choices=sorted(faults.FAULTS), default=None)
+    parser.add_argument("--fault", default=None)
     args = parser.parse_args(argv)
     run._caches(run.ROOT)
     run.steady_host()
+    cell = run.load_cell(run.ROOT, args.workload)
+    route = cell["route"]
+    if args.fault is not None and args.fault not in route.FAULTS:
+        parser.error(f"--fault: the route's faults are {sorted(route.FAULTS)}")
     import torch
 
-    import control
     import pyorc_tpu_torch
-    import traffic
 
     if not torch.cuda.is_available():
         print("readings: no CUDA card", file=sys.stderr)
@@ -49,8 +52,6 @@ def main(argv=None) -> int:
     pyorc_tpu_torch.set_device("cuda")
     torch.set_num_threads(run.HOST_THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cell = run.load_cell(run.ROOT, args.workload)
-    distinct = len(traffic.video_starts(cell["traffic"]))
     out_dir = run.ROOT / "build" / "readings"
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / f"{args.workload}.jsonl", "a") as log:
@@ -58,12 +59,12 @@ def main(argv=None) -> int:
         plan += [("control", args.first_seed + 1000 + k) for k in range(args.control_seeds)]
         for kind, seed in plan:
             t0 = time.perf_counter()
-            program = control.program() if kind == "control" else None
+            program = route.control_program() if kind == "control" else None
             patches = faults.Patches()
             if kind == args.fault:
-                faults.FAULTS[kind](patches, ensemble=cell["cfg"]["piv"]["ensemble_corr"])
+                route.FAULTS[kind](patches, cell["cfg"])
             try:
-                out = run.run_cell(cell, seed, 0.0, False, "cuda", program=program, min_videos=distinct)
+                out = run.run_cell(cell, seed, 0.0, False, "cuda", program=program, min_passes=1)
             finally:
                 patches.undo()
             line = {"workload": args.workload, "kind": kind, "seed": seed, "numbers": out["numbers"],

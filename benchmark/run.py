@@ -3,18 +3,20 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: camera, frames, motion, PIV
-settings, masks, cross-section, the limits of the comparison) and a traffic mix (``workloads/<traffic>.json``:
-frames a video, the ring the videos are cut from). The run
+A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: its route, camera, frames, motion,
+PIV settings, masks, cross-section, the limits of the comparison) and a traffic mix (``workloads/<traffic>.json``:
+frames a video, the ring the videos are cut from). The configuration's route (``routes/<route>.py``, whose
+docstring sets out what a route gives) makes the videos, runs the port's chain and holds it to the plain
+reference; the run
 
-1. makes the ring of the cell's videos on the card from ``--seed`` (``traffic.make_ring``) and runs one
-   warm-up video (set-up, ``setup_s``, from the process's start);
+1. makes the cell's distinct videos from ``--seed`` (the route's ``make_videos``) and runs one warm-up video
+   (set-up, ``setup_s``, from the process's start);
 2. measures for ``--seconds``: one client, closed loop, each video submitted when the previous one has given
-   its discharge, through the port's chain (``chain.run_video``) from a ``LazyFrames`` over the ring;
+   its discharge, through the port's chain (the route's ``run_video``);
 3. with ``--trace 1`` records the window with ``torch.profiler``;
 4. once the window has closed and the program's state is freed, works every distinct video out again with
-   the plain reference (``reference/``) and compares every completed video's outputs with it, and the
-   projected frames that the timed path handed to ``get_piv`` at positions drawn from the seed;
+   the plain reference (the route's ``reference_video``) and compares every completed video's outputs with it,
+   and the projected frames that the timed path handed on at positions drawn from the seed;
 5. prints each number compared beside its limit on standard error, and the result as the last line of
    standard output: the cell's end-to-end metrics (``--trace 0``) or its per-layer metrics (``--trace 1``),
    each taken by the reader ``metrics/<name>.py`` that ``BENCHMARK.json`` names.
@@ -76,8 +78,27 @@ def host_clock() -> dict:
     return out
 
 
+def _module(path: Path, name: str):
+    """The module of the file ``path``, loaded by its path as ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def load_route(bench_dir: Path, cfg: dict):
+    """The route module ``routes/<route>.py`` that the configuration ``cfg`` names; a configuration that names
+    no route, or one that is not there, is refused."""
+    present = sorted(p.stem for p in (bench_dir / "routes").glob("*.py"))
+    route = cfg.get("route")
+    if route not in present:
+        said = "no route" if route is None else f"the route {route!r}, which is not there"
+        raise SystemExit(f"configuration {cfg.get('name')!r} names {said}; the routes present: {present}")
+    return _module(bench_dir / "routes" / f"{route}.py", f"bench_route_{route}")
+
+
 def load_cell(root: Path, name: str) -> dict:
-    """The cell ``name`` of ``root/BENCHMARK.json``: its entry, configuration, traffic and metrics."""
+    """The cell ``name`` of ``root/BENCHMARK.json``: its entry, configuration, route, traffic and metrics."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -85,21 +106,19 @@ def load_cell(root: Path, name: str) -> dict:
     entry = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
     cfg = json.loads((root / configs[entry["config"]]["file"]).read_text())
+    route = load_route(root / bench["paths"][0], cfg)
     traffic = json.loads((root / bench["paths"][0] / "workloads" / f"{entry['traffic']}.json").read_text())
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     reported = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
-    return {"entry": entry, "cfg": cfg, "traffic": traffic, "end_to_end": e2e, "per_layer": layer,
+    return {"entry": entry, "cfg": cfg, "route": route, "traffic": traffic, "end_to_end": e2e, "per_layer": layer,
             "metrics_dir": root / bench["paths"][0] / "metrics"}
 
 
 def reader(metrics_dir: Path, name: str):
     """The ``read(ctx)`` of ``metrics/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", metrics_dir / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _module(metrics_dir / f"{name}.py", f"bench_metric_{name.replace('.', '_')}").read
 
 
 def forbidden_modules() -> list:
@@ -126,27 +145,23 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
-def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, program=None, min_videos: int = 0) -> dict:
+def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, program=None,
+             min_passes: int = 0) -> dict:
     """Run one cell once on ``device``; returns the result line's fields and the numbers compared.
 
-    ``program`` replaces ``chain.run_video`` (a run with a fault planted, or with the plain reference in the
-    program's place); ``min_videos`` videos are measured however short the window (the readings of
-    ``readings.py``).
+    ``program`` replaces the route's ``run_video`` (a run with a fault planted, or with the plain reference in
+    the program's place); every distinct video is measured ``min_passes`` times however short the window (the
+    readings of ``readings.py``).
     """
     import numpy as np
     import torch
 
-    import chain
     import devtrace
-    import traffic as traffic_mod
-    from reference import compare
 
-    cfg, traffic = cell["cfg"], cell["traffic"]
-    run_video = chain.run_video if program is None else program
-    ring = traffic_mod.make_ring(cfg, traffic, seed, device)
-    starts = traffic_mod.video_starts(traffic)
-    n = traffic["frames_per_video"]
-    cc = chain.camera_config(cfg)
+    cfg, traffic, route = cell["cfg"], cell["traffic"], cell["route"]
+    run_video = route.run_video if program is None else program
+    distinct = route.make_videos(cfg, traffic, seed, device)
+    setup = route.setup(cfg)
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -154,8 +169,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, pr
 
     # the projected frames held to the reference: FRAME_CHECKS positions of each distinct video, from the seed
     rng = random.Random(seed)
-    sample = [sorted(rng.sample(range(n), min(FRAME_CHECKS, n))) for _ in starts]
-    warm = run_video(traffic_mod.DeviceFrameSource(ring, starts[0], n), cc, cfg, sample[0])
+    sample = [sorted(rng.sample(range(n), min(FRAME_CHECKS, n)))
+              for n in (distinct.n_frames(slot) for slot in range(len(distinct)))]
+    warm = run_video(distinct.source(0), setup, cfg, sample[0])
     del warm
     sync()
     setup_s = time.perf_counter() - T_START
@@ -170,16 +186,17 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, pr
     t0 = time.perf_counter()
     with devtrace.window():
         k = 0
-        while time.perf_counter() - t0 < seconds or k < min_videos:
-            slot = k % len(starts)
+        while time.perf_counter() - t0 < seconds or k < min_passes * len(distinct):
+            slot = k % len(distinct)
+            n = distinct.n_frames(slot)
             copy0, launch0 = _counters()
             tv = time.perf_counter()
-            out = run_video(traffic_mod.DeviceFrameSource(ring, starts[slot], n), cc, cfg, sample[slot])
+            out = run_video(distinct.source(slot), setup, cfg, sample[slot])
             end = time.perf_counter()
             copy1, launch1 = _counters()
             videos.append({"slot": slot, "n_frames": n, "wall_s": end - tv, "end_s": end - t0,
                            "spans": out["spans"], "copy": _delta(copy1, copy0), "launches": _delta(launch1, launch0)})
-            answers.append((slot, compare.video_answers(out)))
+            answers.append((slot, route.video_answers(out)))
             kept[slot] = out["frames"]
             del out
             k += 1
@@ -201,15 +218,16 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, pr
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    points = traffic_mod.transect_points(cfg)
     refs, frame_checks = {}, []
     for slot, idx, got in checks:
-        ref = compare.reference_video(ring[starts[slot] : starts[slot] + n], cfg, points)
-        frame_checks.append((got, ref.pop("proj")[torch.as_tensor(idx, device=ring.device)].cpu()))
+        ref = route.reference_video(distinct.frames(slot), cfg)
+        proj = ref.pop("proj")
+        frame_checks.append((got, proj[torch.as_tensor(idx, device=proj.device)].cpu()))
         refs[slot] = ref
-    numbers = compare.compare(answers, refs, frame_checks, cfg)
+        del proj
+    numbers = route.compare(answers, refs, frame_checks, cfg)
     reference_s = time.perf_counter() - t_ref
-    correct = bool(answers) and compare.verdict(numbers, cfg["limits"])
+    correct = bool(answers) and route.verdict(numbers, cfg["limits"])
 
     ctx = {"cfg": cfg, "traffic": traffic, "videos": videos, "trace": trace_data, "setup_s": setup_s,
            "window_s": seconds}
@@ -230,14 +248,14 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, pr
     walls = [v["wall_s"] for v in videos]
     if trace_data is not None:  # the lazy chain's spans run in its prefetch thread: two threads or more
         host["span_threads"] = trace_data["span_threads"]
-    info = {"videos": len(videos), "frames": n * len(videos), "setup_s": setup_s, "host": host,
+    info = {"videos": len(videos), "frames": sum(v["n_frames"] for v in videos), "setup_s": setup_s, "host": host,
             "video_s_median": float(np.median(walls)) if walls else math.nan, "reference_s": reference_s,
             "window_end_s": videos[-1]["end_s"] if videos else math.nan,
             "spans": {k: _quartiles([v[k] if k == "wall_s" else v["spans"][k] for v in videos])
-                      for k in ("wall_s",) + chain.SPANS}}
+                      for k in ("wall_s",) + route.SPANS}}
     # a number that is not finite (an answer missing, a mask that differs) goes out as null: the line stays JSON
     result["checks"] = {k: {"value": numbers[k] if math.isfinite(numbers[k]) else None, "limit": cfg["limits"][k]}
-                        for k in compare.NUMBERS}
+                        for k in route.NUMBERS}
     return {"result": result, "numbers": numbers, "info": info}
 
 

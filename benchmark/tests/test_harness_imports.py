@@ -54,3 +54,15 @@ def test_the_reference_imports_name_nothing_of_the_port():
                 names = [node.module]
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN + ("pyorc_tpu_torch",), (path.name, name)
+
+
+def test_the_harness_reaches_the_chain_traffic_and_reference_only_through_a_route():
+    for name in ("run.py", "control.py", "faults.py", "readings.py"):
+        for node in ast.walk(ast.parse((BENCH / name).read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            for imported in names:
+                assert imported.split(".")[0] not in ("chain", "traffic", "reference"), (name, imported)

@@ -72,9 +72,10 @@ def test_every_config_has_a_cell_and_every_cell_its_metrics(bench):
 
 
 def test_config_files_state_their_cut_and_limits(bench):
-    from reference import compare
+    import run
 
     for c in bench["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"] and cfg["source"] == c["source"]
-        assert set(cfg["limits"]) == set(compare.NUMBERS) and "assumed" in cfg and "precision" in cfg
+        route = run.load_route(BENCH, cfg)
+        assert set(cfg["limits"]) == set(route.NUMBERS) and "assumed" in cfg and "precision" in cfg

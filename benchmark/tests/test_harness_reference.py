@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from toy import CELLS, run_toy
+from toy import CELLS, run_toy, toy_cell
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -18,9 +18,8 @@ def test_the_port_agrees_with_the_reference(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_fails(name):
-    import control
-
-    out = run_toy(name, program=control.program())
+    cell = toy_cell(name)
+    out = run_toy(name, program=cell["route"].control_program(), cell=cell)
     assert not out["result"]["correct"], out["numbers"]
     limits = {k: c["limit"] for k, c in out["result"]["checks"].items()}
     failed = [k for k, v in out["numbers"].items() if not (math.isfinite(v) and v <= limits[k])]
