@@ -2,10 +2,11 @@
 
 The frames ``DataArray`` is built as the port's ``Video.get_frames`` builds it, over a ``LazyFrames`` on the
 benchmark's device frame source; then ``normalize`` -> ``project`` -> ``get_piv`` -> ``mask`` ->
-``get_transect`` -> ``get_q`` -> ``get_river_flow`` (:func:`run_chain`, which a route whose frames come from
-elsewhere runs on its own frames ``DataArray``). The camera is a nadir pinhole whose ground control
-points and area of interest sit ``gcp_px`` and ``aoi_px`` inside the frame, so that a pixel is
-``resolution`` m on the water plane; the cross-section runs across the flow over a parabolic bed.
+``get_transect`` -> ``get_q`` -> ``get_river_flow`` (:func:`run_chain`, which a route whose frames, camera or
+cross-section come from elsewhere runs on its own frames ``DataArray`` and its own cross-section's points). The
+nadir route's camera (:func:`camera_config`) is a pinhole whose ground control points and area of interest sit
+``gcp_px`` and ``aoi_px`` inside the frame, so that a pixel is ``resolution`` m on the water plane; its
+cross-section (``traffic.transect_points``) runs across the flow over a parabolic bed.
 """
 
 from __future__ import annotations
@@ -99,13 +100,14 @@ def keep_frames(proj, positions, kept: dict):
 
 def run_video(source, cc, cfg: dict, sample=()) -> dict:
     """One video of a frame source through the port's chain: :func:`run_chain` over the frames that
-    :func:`frames_dataarray` gives."""
-    return run_chain(lambda: frames_dataarray(source, cc, cfg["fps"]), cfg, sample)
+    :func:`frames_dataarray` gives, across the nadir route's cross-section."""
+    return run_chain(lambda: frames_dataarray(source, cc, cfg["fps"]), cfg, transect_points(cfg), sample)
 
 
-def run_chain(get_frames, cfg: dict, sample=()) -> dict:
+def run_chain(get_frames, cfg: dict, points, sample=()) -> dict:
     """The chain from the frames ``DataArray`` that ``get_frames()`` gives (called inside the span
-    ``chain_setup``) to the discharge; returns its outputs and the spans' seconds.
+    ``chain_setup``) to the discharge across the cross-section ``points`` ((x, y, z) [m] in the camera's
+    coordinates, ``get_transect``'s arguments); returns its outputs and the spans' seconds.
 
     Outputs: ``frames`` (the projected frames at the positions ``sample``, as ``get_piv`` read them;
     a frame it never read is missing), ``piv`` and ``masked`` (Datasets with ``v_x``, ``v_y``, ``corr``,
@@ -125,7 +127,7 @@ def run_chain(get_frames, cfg: dict, sample=()) -> dict:
     with span(spans, "mask_transect"):
         mask = piv.velocimetry.mask
         masked = piv.velocimetry.mask([getattr(mask, name)() for name in cfg["masks"]])
-        transect = masked.velocimetry.get_transect(*transect_points(cfg))
+        transect = masked.velocimetry.get_transect(*points)
         q = transect.transect.get_q(fill_method=cfg["fill_method"])
         q.transect.get_river_flow()
     frames = [kept[i] for i in sample if i in kept]

@@ -1,5 +1,6 @@
 """The piv_ensemble kernel's share [%] of its roofline: the frozen bound of the work the window's videos asked of
-it (``work.video_bounds``) over the kernel's device time in the trace. Nothing where the cell does not run it."""
+it (``work.video_bounds`` on the route's grid, ``ctx["grid"]``) over the kernel's device time in the trace.
+Nothing where the cell does not run it."""
 
 import devtrace
 import work
@@ -10,7 +11,8 @@ def read(ctx):
     if trace is None:
         return None
     seconds = devtrace.kernel_seconds(trace, work.KERNELS["piv_ensemble"])
-    bound_ms = sum(work.video_bounds(ctx["cfg"], v["n_frames"]).get("piv_ensemble", 0.0) for v in ctx["videos"])
+    cfg, grid = ctx["cfg"], ctx["grid"]
+    bound_ms = sum(work.video_bounds(cfg, v["n_frames"], grid).get("piv_ensemble", 0.0) for v in ctx["videos"])
     if seconds <= 0 or bound_ms <= 0:
         return None
     return 100.0 * bound_ms / 1e3 / seconds

@@ -31,27 +31,28 @@ CONFIDENT_GAP = 5e-3
 NUMBERS = ("frames_gap", "uv_gap_px", "corr_gap", "s2n_gap", "masked_gap_px", "transect_gap", "q_gap")
 
 
-def final_grid(cfg: dict):
-    """Window centres (rows, cols) [px of the projected frame] of the last pass."""
-    a = cfg["camera"]["aoi_px"]
-    ny, nx = cfg["height"] - 2 * a, cfg["width"] - 2 * a
+def final_grid(cfg: dict, shape):
+    """Window centres (rows, cols) [px of the projected frame of ``shape`` (rows, cols)] of the last pass."""
     ws = cfg["piv"]["window_size"]
     ws += ws % 2
     ov = cfg["piv"]["overlap"]
-    return plain.grid(ny, ws, ov[0])[1], plain.grid(nx, ws, ov[1])[1]
+    return plain.grid(shape[0], ws, ov[0])[1], plain.grid(shape[1], ws, ov[1])[1]
 
 
-def reference_video(frames: torch.Tensor, cfg: dict, points, precision: str = "float32") -> dict:
-    """The chain's outputs for one video, uint8 ``frames`` [T, H, W] on the device, by the plain reference.
+def reference_video(frames: torch.Tensor, cfg: dict, view, points, precision: str = "float32") -> dict:
+    """The chain's outputs for one video, uint8 ``frames`` [T, H, W] on the device, by the plain reference,
+    through the nadir pinhole ``view`` (its focal length [px], and its area of interest's inset (rows, cols)
+    [px] from the frame's edges) and across the cross-section ``points`` (x, y, z) [m].
 
     Returns the projected frames (uint8 [T, ny, nx] on the device), the PIV fields ``u``, ``v`` [px] and
     ``corr``, ``s2n`` with each window's top-2 ``gap`` ([T-1 or 1, nr, nc], host), the masks' ``keep``,
     and the cross-section's ``v_eff``, ``q`` and ``river_flow``.
     """
+    f, inset = view
     rnd = plain.rounder(precision)
     n = frames.shape[0]
     mean = torch.as_tensor(plain.sampled_mean(frames, cfg["normalize_samples"]), device=frames.device)
-    index = plain.ortho_index(cfg)
+    index = plain.ortho_index(cfg, f, inset)
     proj = torch.cat([plain.project(plain.normalize(frames[i : i + 64], mean, rnd), index) for i in range(0, n, 64)])
     p = cfg["piv"]
     ws = p["window_size"] + p["window_size"] % 2
@@ -70,8 +71,8 @@ def reference_video(frames: torch.Tensor, cfg: dict, points, precision: str = "f
     }
     keep = plain.masks(field, cfg["masks"])
     masked = {k: np.where(keep, a, np.nan) for k, a in field.items()}
-    rows, cols = final_grid(cfg)
-    tr = plain.transect(masked, cfg, rows, cols, points)
+    rows, cols = final_grid(cfg, proj.shape[-2:])
+    tr = plain.transect(masked, cfg, rows, cols, points, inset)
     return {"proj": proj, "u": u, "v": v, "corr": cmax, "s2n": s2n, "gap": gap, "keep": keep, "dt": dt, **tr}
 
 

@@ -1,7 +1,7 @@
 """The plain reference of one video's chain: plain PyTorch and NumPy, from the same frames as the port.
 
 It imports nothing of the port and works out again whatever the port derives: normalize's sampled mean and
-per-frame rescale, the orthorectification of the configuration's nadir pinhole camera, the FFT
+per-frame rescale, the orthorectification of a nadir pinhole camera, the FFT
 cross-correlation PIV (per pair, multipass with symmetric window deformation, or ensemble), the masks, the
 cross-section's sampling, the discharge. It follows pyOpenRiverCam's definitions as the port documents them:
 
@@ -69,20 +69,21 @@ def normalize(frames: torch.Tensor, mean: torch.Tensor, rnd) -> torch.Tensor:
     return rnd(rnd(rnd(red - lo) / rnd(hi - lo)) * 255).to(torch.uint8)
 
 
-def ortho_index(cfg: dict):
-    """(rows, cols): the frame pixel each cell of the ortho grid reads, for the configuration's nadir camera.
+def ortho_index(cfg: dict, f: float, inset):
+    """(rows, cols): the frame pixel each cell of the ortho grid reads, for a nadir camera of focal length ``f``.
 
     The camera looks straight down from ``f * resolution`` m over the frame's centre (principal point at the
     centre, no distortion), so that a pixel is ``resolution`` m on the water plane, the image's rows
-    pointing south. The grid covers the area of interest ``aoi_px`` inside the frame's edges at
-    ``resolution`` m; each cell reads the pixel nearest to where its north-west corner is seen.
+    pointing south. The grid covers the area of interest ``inset`` (rows, cols) px inside the frame's top and
+    bottom, and left and right, edges at ``resolution`` m; each cell reads the pixel nearest to where its
+    north-west corner is seen.
     """
     h, w, res = cfg["height"], cfg["width"], cfg["resolution"]
-    f, a = cfg["camera"]["f"], cfg["camera"]["aoi_px"]
+    a_r, a_c = inset
     cam_x, cam_y, cam_z = res * w / 2, res * h / 2, f * res
-    ny, nx = h - 2 * a, w - 2 * a
-    x = res * a + res * np.arange(nx)
-    y = res * (h - a) - res * np.arange(ny)
+    ny, nx = h - 2 * a_r, w - 2 * a_c
+    x = res * a_c + res * np.arange(nx)
+    y = res * (h - a_r) - res * np.arange(ny)
     cols = w / 2 + f * (x - cam_x) / cam_z
     rows = h / 2 - f * (y - cam_y) / cam_z
     return np.round(rows).astype(np.int64), np.round(cols).astype(np.int64)
@@ -337,11 +338,13 @@ def _extrapolating(s, values, at):
     return out
 
 
-def transect(field: dict, cfg: dict, rows_px: np.ndarray, cols_px: np.ndarray, points) -> dict:
+def transect(field: dict, cfg: dict, rows_px: np.ndarray, cols_px: np.ndarray, points, inset) -> dict:
     """The cross-section of a (masked) field [T, nr, nc] in m/s on the window centres (``rows_px``,
-    ``cols_px`` of the projected frame): per quantile and point ``v_eff`` [m/s], ``q`` [m2/s], and
-    ``river_flow`` [m3/s] per quantile."""
-    res, h, a = cfg["resolution"], cfg["height"], cfg["camera"]["aoi_px"]
+    ``cols_px`` of the projected frame, whose area of interest lies ``inset`` (rows, cols) px inside the
+    frame's edges): per quantile and point ``v_eff`` [m/s], ``q`` [m2/s], and ``river_flow`` [m3/s] per
+    quantile."""
+    res, h = cfg["resolution"], cfg["height"]
+    a_r, a_c = inset
     x, y, z = (np.asarray(p, dtype=np.float64) for p in points)
     dist = res * float(cols_px[1] - cols_px[0])
     d = np.concatenate([[0.0], np.hypot(np.diff(x), np.diff(y))])
@@ -349,8 +352,8 @@ def transect(field: dict, cfg: dict, rows_px: np.ndarray, cols_px: np.ndarray, p
     s_at = np.arange(s.min(), np.ceil((1 + s.max() / dist) * dist), dist)
     x, y, z = (_extrapolating(s, c, s_at) for c in (x, y, z))
     # the points in the window grid's index space (world: x east, y north, the frame's rows south)
-    fc = (x - res * (a + cols_px[0] + 0.5)) / dist
-    fr = (res * (h - a - rows_px[0] - 0.5) - y) / dist
+    fc = (x - res * (a_c + cols_px[0] + 0.5)) / dist
+    fr = (res * (h - a_r - rows_px[0] - 0.5) - y) / dist
     nr, nc = len(rows_px), len(cols_px)
     valid = (fr >= 0) & (fr <= nr - 1) & (fc >= 0) & (fc <= nc - 1)
     fr, fc = np.where(valid, fr, 0.0), np.where(valid, fc, 0.0)

@@ -5,7 +5,8 @@ A configuration names its route (``"route"`` in ``configs/<name>.json``); ``run.
 ``routes/<route>.py`` by its path and puts the module in the cell (``cell["route"]``). ``run.run_cell``,
 ``readings.py`` and the tests reach the traffic, the chain and the reference only through it, so a deployment on
 another path of the port (frames from video files, a camera with a pose and distortion, STIV) is a new route module
-beside this one, with its configuration, traffic and readers, and no file that is there edited. A route gives:
+beside this one, with its configuration, traffic and readers, and no file that is there edited. A route gives
+what ``run.ROUTE_GIVES`` names (``run.load_route`` refuses one that lacks a name), each set out here:
 
 - ``make_videos(cfg, traffic, seed, device)``: the traffic's distinct videos, made from the seed during set-up: an
   object with ``len()``; ``n_frames(slot)``; ``source(slot)``, what the chain reads (a new one each call); and
@@ -14,7 +15,11 @@ beside this one, with its configuration, traffic and readers, and no file that i
 - ``setup(cfg)``: what the chain needs once a run;
 - ``run_video(source, setup, cfg, sample)``: one video through the port: a dict with ``spans`` (seconds by the
   names of ``SPANS``), ``frames`` (the projected frames at the positions ``sample`` as the timed path handed them
-  on, or None) and what ``video_answers`` reads;
+  on, or None) and what ``video_answers`` reads. A route on the port's PIV chain runs ``chain.run_chain`` with
+  its own frames and its own cross-section's points;
+- ``grid_shape(cfg)``: (rows, cols) of the projected frame that the route's camera and area of interest give,
+  worked out from the configuration, not read off the program's output: ``run.run_cell`` hands it to the
+  readers as ``ctx["grid"]``, and ``work.video_bounds`` counts the PIV kernels' work on it;
 - ``SPANS``: the benchmark's spans of a video, reported by their quartiles;
 - ``NUMBERS``: the numbers compared, each held to its limit in the configuration's ``limits``;
 - ``video_answers(out)``: what one completed video said, as host arrays, kept through the window;
@@ -29,8 +34,9 @@ beside this one, with its configuration, traffic and readers, and no file that i
 
 Here the videos are consecutive slices of one ring of frames on the card (``traffic.make_ring``,
 ``traffic.video_starts``), each handed to the chain as a ``traffic.DeviceFrameSource``; the camera is
-``chain.camera_config``'s nadir pinhole; the chain ``chain.run_video``; the reference ``reference/`` with the
-cross-section of ``traffic.transect_points``.
+``chain.camera_config``'s nadir pinhole, whose area of interest lies ``aoi_px`` inside each edge of the frame; the
+chain ``chain.run_video``, which runs ``chain.run_chain`` across the cross-section of ``traffic.transect_points``;
+the reference ``reference/`` through the same camera and across the same points.
 """
 
 from __future__ import annotations
@@ -39,11 +45,8 @@ import chain
 import control
 import faults
 import traffic
-from reference.compare import NUMBERS, compare, verdict, video_answers
+from reference.compare import NUMBERS, compare, verdict, video_answers  # noqa: F401  parts of the route
 from reference.compare import reference_video as _reference_video
-
-__all__ = ["make_videos", "setup", "run_video", "SPANS", "NUMBERS", "video_answers", "reference_video", "compare",
-           "verdict", "control_program", "FAULTS"]
 
 SPANS = chain.SPANS
 setup = chain.camera_config
@@ -73,8 +76,21 @@ def make_videos(cfg: dict, mix: dict, seed: int, device) -> RingVideos:
     return RingVideos(traffic.make_ring(cfg, mix, seed, device), traffic.video_starts(mix), mix["frames_per_video"])
 
 
+def _view(cfg: dict):
+    """(f [px], (rows, cols) [px]): the camera's focal length and its area of interest's inset from the frame's
+    edges, ``aoi_px`` on every side."""
+    cam = cfg["camera"]
+    return cam["f"], (cam["aoi_px"], cam["aoi_px"])
+
+
+def grid_shape(cfg: dict) -> tuple:
+    """The projected frame: the area of interest inside the frame's edges, a pixel a cell."""
+    _, (r, c) = _view(cfg)
+    return cfg["height"] - 2 * r, cfg["width"] - 2 * c
+
+
 def reference_video(frames, cfg: dict, precision: str = "float32") -> dict:
-    return _reference_video(frames, cfg, traffic.transect_points(cfg), precision)
+    return _reference_video(frames, cfg, _view(cfg), traffic.transect_points(cfg), precision)
 
 
 def control_program():

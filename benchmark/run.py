@@ -6,8 +6,9 @@
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: its route, camera, frames, motion,
 PIV settings, masks, cross-section, the limits of the comparison) and a traffic mix (``workloads/<traffic>.json``:
 frames a video, the ring the videos are cut from). The configuration's route (``routes/<route>.py``, whose
-docstring sets out what a route gives) makes the videos, runs the port's chain and holds it to the plain
-reference; the run
+docstring sets out what a route gives) makes the videos, runs the port's chain, gives the projected grid its
+camera and area of interest make (``grid_shape``: the shape the work of the PIV kernels is counted on) and holds
+the chain to the plain reference; nothing here reads the camera. The run
 
 1. makes the cell's distinct videos from ``--seed`` (the route's ``make_videos``) and runs one warm-up video
    (set-up, ``setup_s``, from the process's start);
@@ -46,6 +47,10 @@ ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "pyorc_tpu")  # whole top-level module names the run may not load
 FRAME_CHECKS = 4  # projected frames of each distinct video held to the reference, drawn from the seed
 HOST_THREADS = 4  # host threads of torch's and the BLAS/OpenMP pools, whatever the machine's core count
+# what a route module gives, the one list of the contract (``routes/nadir_piv.py``'s docstring says what each
+# is); FAULTS may be empty
+ROUTE_GIVES = ("make_videos", "setup", "run_video", "grid_shape", "SPANS", "NUMBERS", "video_answers",
+               "reference_video", "compare", "verdict", "control_program", "FAULTS")
 
 
 def _caches(root: Path) -> None:
@@ -88,13 +93,18 @@ def _module(path: Path, name: str):
 
 def load_route(bench_dir: Path, cfg: dict):
     """The route module ``routes/<route>.py`` that the configuration ``cfg`` names; a configuration that names
-    no route, or one that is not there, is refused."""
+    no route, or one that is not there, is refused, and so is a route that lacks a part of the contract."""
     present = sorted(p.stem for p in (bench_dir / "routes").glob("*.py"))
     route = cfg.get("route")
     if route not in present:
         said = "no route" if route is None else f"the route {route!r}, which is not there"
         raise SystemExit(f"configuration {cfg.get('name')!r} names {said}; the routes present: {present}")
-    return _module(bench_dir / "routes" / f"{route}.py", f"bench_route_{route}")
+    module = _module(bench_dir / "routes" / f"{route}.py", f"bench_route_{route}")
+    missing = [name for name in ROUTE_GIVES if not hasattr(module, name)]
+    if missing:
+        raise SystemExit(f"the route {route!r} of configuration {cfg.get('name')!r} does not give "
+                         f"{', '.join(missing)}: a route gives {', '.join(ROUTE_GIVES)}")
+    return module
 
 
 def load_cell(root: Path, name: str) -> dict:
@@ -229,8 +239,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, pr
     reference_s = time.perf_counter() - t_ref
     correct = bool(answers) and route.verdict(numbers, cfg["limits"])
 
-    ctx = {"cfg": cfg, "traffic": traffic, "videos": videos, "trace": trace_data, "setup_s": setup_s,
-           "window_s": seconds}
+    ctx = {"cfg": cfg, "traffic": traffic, "grid": tuple(route.grid_shape(cfg)), "videos": videos,
+           "trace": trace_data, "setup_s": setup_s, "window_s": seconds}
     wanted = cell["per_layer"] if trace else cell["end_to_end"]
     metrics = {}
     for m in wanted:

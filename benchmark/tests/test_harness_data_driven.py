@@ -1,14 +1,12 @@
 """A configuration, a traffic mix, a per-layer metric and a route added as new files plus new BENCHMARK.json
-entries, with no file that is there edited, are found and run by name; a configuration that names no route, or
-one that is not there, is refused."""
+entries, with no file that is there edited, are found and run by name; a configuration that names no route, one
+that is not there, or one that lacks a part of the route contract, is refused."""
 
-import hashlib
 import json
-import shutil
 
 import pytest
 
-from toy import BENCH, ROOT, run_toy, toy_cell
+from toy import BENCH, add_cell, copy_bench, digests, run_toy, toy_cell
 
 # A route whose videos are uint8 stacks in host memory, handed to the port's chain through the frame-source
 # protocol (the port uploads each batch it reads), from which its reference reads them back.
@@ -63,44 +61,24 @@ def make_videos(cfg, mix, seed, device):
     return HostVideos([ring[s : s + n].copy() for s in traffic.video_starts(mix)], device)
 
 
+def grid_shape(cfg):
+    a = cfg["camera"]["aoi_px"]
+    return cfg["height"] - 2 * a, cfg["width"] - 2 * a
+
+
 def run_video(source, cc, cfg, sample=()):
-    return chain.run_chain(lambda: chain.frames_dataarray(source, cc, cfg["fps"]), cfg, sample)
+    return chain.run_chain(lambda: chain.frames_dataarray(source, cc, cfg["fps"]), cfg, traffic.transect_points(cfg),
+                           sample)
 
 
 def reference_video(frames, cfg, precision="float32"):
-    return _reference_video(frames, cfg, traffic.transect_points(cfg), precision)
+    view = cfg["camera"]["f"], (cfg["camera"]["aoi_px"], cfg["camera"]["aoi_px"])
+    return _reference_video(frames, cfg, view, traffic.transect_points(cfg), precision)
 
 
 def control_program():
     return control.program(reference_video, lambda source: torch.from_numpy(source.stack))
 '''
-
-
-def _digests(root):
-    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
-
-
-def _copy(tmp_path):
-    """A copy of the benchmark beside its BENCHMARK.json, and the digests of the copy's files."""
-    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    return _digests(tmp_path / "benchmark")
-
-
-def _add_cell(tmp_path, cfg: dict, traffic: str, metric=None):
-    """The configuration ``cfg`` as a new file and new entries for it and its cell (and ``metric``), appended to
-    the copy's BENCHMARK.json (a data file, not code); returns the cell's name."""
-    (tmp_path / "benchmark" / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": cfg["name"], "source": cfg["source"],
-                             "file": f"benchmark/configs/{cfg['name']}.json", "reduced": [], "why": "a toy"})
-    name = f"{cfg['name']}.{traffic}"
-    bench["workloads"].append({"name": name, "config": cfg["name"], "traffic": traffic, "chips": 1, "why": "a toy"})
-    if metric is not None:
-        bench["per_layer"].append({**metric, "workloads": [name]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    return name
 
 
 def _config(name: str, **changes) -> dict:
@@ -109,7 +87,7 @@ def _config(name: str, **changes) -> dict:
 
 
 def test_new_files_are_found_without_an_edit(tmp_path):
-    before = _copy(tmp_path)
+    before = copy_bench(tmp_path)
 
     # the new files: a configuration, a traffic mix and a metric's reader
     cfg = _config("toy_single")
@@ -118,9 +96,9 @@ def test_new_files_are_found_without_an_edit(tmp_path):
         json.dumps({"frames_per_video": 8, "ring_frames": 16, "clients": 1, "loop": "closed"}))
     (tmp_path / "benchmark" / "metrics" / "toy_frames.py").write_text(
         "def read(ctx):\n    return float(sum(v['n_frames'] for v in ctx['videos']))\n")
-    name = _add_cell(tmp_path, cfg, "toy_pairs", {"name": "toy_frames", "unit": "frames", "better": "higher",
-                                                  "source": "host_clock", "layer": "accessors",
-                                                  "moves": "frames_per_s"})
+    name = add_cell(tmp_path, cfg, "toy_pairs", {"name": "toy_frames", "unit": "frames", "better": "higher",
+                                                 "source": "host_clock", "layer": "accessors",
+                                                 "moves": "frames_per_s"})
 
     cell = toy_cell(name, root=tmp_path)
     cell["traffic"].update(frames_per_video=8, ring_frames=16)
@@ -129,16 +107,16 @@ def test_new_files_are_found_without_an_edit(tmp_path):
     out = run_toy(name, root=tmp_path, trace=True, cell=cell)
     assert out["result"]["correct"], out["numbers"]
     assert out["result"]["metrics"]["toy_frames"]["value"] == 8.0 * out["result"]["attempted"]
-    after = _digests(tmp_path / "benchmark")
+    after = digests(tmp_path / "benchmark")
     assert {k: v for k, v in after.items() if k in before} == before
 
 
 def test_a_route_is_added_as_new_files(tmp_path):
-    before = _copy(tmp_path)
+    before = copy_bench(tmp_path)
 
     # the new files: a route whose frames come from host memory, and a configuration that names it
     (tmp_path / "benchmark" / "routes" / "host_stack.py").write_text(HOST_STACK_ROUTE)
-    name = _add_cell(tmp_path, _config("toy_host", route="host_stack"), "video126")
+    name = add_cell(tmp_path, _config("toy_host", route="host_stack"), "video126")
 
     cell = toy_cell(name, root=tmp_path)
     route = cell["route"]
@@ -149,19 +127,28 @@ def test_a_route_is_added_as_new_files(tmp_path):
     assert sum(route.READS) >= out["info"]["frames"]  # every frame of every video came from a host stack
     control = run_toy(name, root=tmp_path, cell=cell, program=route.control_program())
     assert not control["result"]["correct"], control["numbers"]
-    after = _digests(tmp_path / "benchmark")
+    after = digests(tmp_path / "benchmark")
     assert {k: v for k, v in after.items() if k in before} == before
 
 
-@pytest.mark.parametrize("route", [None, "no_such_route"])
+@pytest.mark.parametrize("route", [None, "no_such_route", "no_grid"])
 def test_a_configuration_without_its_route_is_refused(tmp_path, route):
+    """A configuration with no route, with one that is not there, or with one that lacks a part of the contract
+    (here ``grid_shape``), is refused at load, saying what is missing."""
     import run
 
-    _copy(tmp_path)
+    copy_bench(tmp_path)
+    if route == "no_grid":
+        source = (BENCH / "routes" / "nadir_piv.py").read_text()
+        (tmp_path / "benchmark" / "routes" / "no_grid.py").write_text(source + "\ndel grid_shape\n")
     cfg = _config("toy_lost", route=route)
     if route is None:
         del cfg["route"]
-    name = _add_cell(tmp_path, cfg, "video126")
-    with pytest.raises(SystemExit, match=r"the routes present: \['nadir_piv'\]") as refused:
+    name = add_cell(tmp_path, cfg, "video126")
+    said = {None: "names no route; the routes present: ['nadir_piv']",
+            "no_such_route": "names the route 'no_such_route', which is not there; the routes present: ['nadir_piv']",
+            "no_grid": "the route 'no_grid' of configuration 'toy_lost' does not give grid_shape: a route gives "
+                       + ", ".join(run.ROUTE_GIVES)}[route]
+    with pytest.raises(SystemExit) as refused:
         run.load_cell(tmp_path, name)
-    assert ("names no route" if route is None else f"names the route {route!r}") in str(refused.value)
+    assert said in str(refused.value)

@@ -15,12 +15,12 @@ def test_frozen_bounds_equal_the_ports(name):
     import work
     from pyorc_tpu_torch.ops import roofline as port
 
-    cfg = run.load_cell(ROOT, name)["cfg"]
+    cell = run.load_cell(ROOT, name)
+    cfg = cell["cfg"]
     n = json.loads((ROOT / "benchmark" / "workloads" / f"{name.split('.')[1]}.json").read_text())["frames_per_video"]
-    a = cfg["camera"]["aoi_px"]
-    h, w = cfg["height"] - 2 * a, cfg["width"] - 2 * a
+    h, w = cell["route"].grid_shape(cfg)
     meta = dict(device="meta")
-    bounds = work.video_bounds(cfg, n)
+    bounds = work.video_bounds(cfg, n, (h, w))
     assert bounds and all(b > 0 for b in bounds.values())
     for fn in ("work_bound", "pairs_bound", "ensemble_bound", "deform_bound"):
         assert hasattr(frozen, fn)

@@ -4,6 +4,9 @@ multipass, 16 px ensemble) and 8 or 16 frames a video."""
 
 from __future__ import annotations
 
+import hashlib
+import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -41,3 +44,35 @@ def run_toy(name: str, program=None, seed: int = 2**31 + 7, root: Path = ROOT, t
     pyorc_tpu_torch.set_device("cpu")
     cell = toy_cell(name, root) if cell is None else cell
     return run.run_cell(cell, seed, 0.0, trace, "cpu", program=program, min_passes=1)
+
+
+def digests(root: Path) -> dict:
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
+
+
+def copy_bench(root: Path) -> dict:
+    """A copy of the benchmark beside its BENCHMARK.json in ``root``, and the digests of the copy's files."""
+    shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    return digests(root / "benchmark")
+
+
+def add_cell(root: Path, cfg: dict, traffic: str, metric=None, per_layer=()) -> str:
+    """The configuration ``cfg`` as a new file in the copy at ``root``, and new entries for it and its cell on the
+    traffic ``traffic`` appended to the copy's BENCHMARK.json (a data file, not code): a new per-layer ``metric``
+    for the cell, and the cell in the ``workloads`` of the per-layer metrics named in ``per_layer``; returns the
+    cell's name."""
+    (root / "benchmark" / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": cfg["name"], "source": cfg["source"],
+                             "file": f"benchmark/configs/{cfg['name']}.json", "reduced": [], "why": "a toy"})
+    name = f"{cfg['name']}.{traffic}"
+    bench["workloads"].append({"name": name, "config": cfg["name"], "traffic": traffic, "chips": 1, "why": "a toy"})
+    for m in bench["per_layer"]:
+        if m["name"] in per_layer:
+            m["workloads"].append(name)
+    if metric is not None:
+        bench["per_layer"].append({**metric, "workloads": [name]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return name

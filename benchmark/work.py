@@ -1,6 +1,6 @@
 """The work one video of a configuration asks of each hand-written kernel, as the frozen bounds count it.
 
-Bounds [ms] for a video of ``n_frames`` projected frames: the per-pair kernel's at each pass, the deformation
+Bounds [ms] for a video of ``n_frames`` projected frames of the route's grid (``grid_shape``): the per-pair kernel's at each pass, the deformation
 kernel's at each pass after the first, and the ensemble kernel's over the uint8 stack. They count the work
 these inputs need, whatever implements it: a chunked or split launch does the same work. A pass over
 undeformed frames (the single pass, and multipass's first) needs each frame's windows once and the uint8
@@ -22,10 +22,10 @@ def _axis(n_px: int, ws: int, ov: int) -> int:
     return (n_px - ws) // (ws - ov) + 1
 
 
-def video_bounds(cfg: dict, n_frames: int) -> dict:
-    """{kernel: bound [ms]} for one video; a kernel the configuration does not run is left out."""
-    a = cfg["camera"]["aoi_px"]
-    h, w = cfg["height"] - 2 * a, cfg["width"] - 2 * a
+def video_bounds(cfg: dict, n_frames: int, grid) -> dict:
+    """{kernel: bound [ms]} for one video of ``n_frames`` projected frames of ``grid`` (rows, cols); a kernel
+    the configuration does not run is left out."""
+    h, w = grid
     p = cfg["piv"]
     ws = p["window_size"] + p["window_size"] % 2
     n_pairs = n_frames - 1
