@@ -863,14 +863,11 @@ def lazy_dataarray(source, cc, fps=FPS):
     return da
 
 
-def _piv_output_bytes(piv, n_pairs, w_px, ensemble):
-    """Bytes get_piv downloads: per pair u, v, cmax, s2n; for the ensemble the summed
-    w_px x w_px planes and counts once, and cmax, s2n per pair (float32 each)."""
+def _piv_output_bytes(piv, n_pairs, ensemble):
+    """Bytes get_piv downloads: per pair u, v, cmax, s2n; for the ensemble the same four
+    fields once, its finish taken on the device (float32 each)."""
     n_rows, n_cols = piv["v_x"].shape[1:]
-    n_win = n_rows * n_cols
-    if not ensemble:
-        return 4 * 4 * n_pairs * n_win
-    return 4 * (n_win * w_px * w_px + n_win + 2 * n_pairs * n_win)
+    return 4 * 4 * (1 if ensemble else n_pairs) * n_rows * n_cols
 
 
 def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100, tag="lazy", video_file=None):
@@ -943,7 +940,7 @@ def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100,
         else:
             res = check_chain(piv, q, cc, w_px)
         moved = MOVED[f"get_piv[{sub}]"]
-        want_d2h = _piv_output_bytes(piv, stack.shape[0] - 1, w_px, ensemble)
+        want_d2h = _piv_output_bytes(piv, stack.shape[0] - 1, ensemble)
         if moved["d2h"] != want_d2h or moved["h2d"] > stack.nbytes:
             raise AssertionError(
                 f"get_piv[{sub}] moved {moved}; outputs are {want_d2h} bytes, the stack {stack.nbytes}"

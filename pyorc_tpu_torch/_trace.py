@@ -43,9 +43,13 @@ metric each one feeds):
 - lazy chain: ``lazy:decode``, ``lazy:upload`` and ``lazy:<op>`` (each op of
   the chain on a batch), ``prefetch:full`` (the prefetch thread queueing a
   batch, blocked while the queue is full);
-- engine: ``prefetch:wait`` (the consumer blocked on the next batch), and
-  the counter ``engine:chunks`` (each chunk run, each half of an
-  out-of-memory split counted).
+- engine: ``prefetch:wait`` (the consumer blocked on the next batch),
+  ``engine:ensemble_finish`` (the ensemble's gated mean plane, its peak and
+  the pairs' corr and s2n means, taken on the device that holds the chunks'
+  results once their kernels have drained, and the fields brought down: once
+  a video), and the counter
+  ``engine:chunks`` (each chunk run, each half of an out-of-memory split
+  counted).
 """
 
 from __future__ import annotations

@@ -36,7 +36,10 @@ wraps the PIV loop in ``torch.profiler`` and writes a Chrome trace into
 
 As in the JAX package, the ensemble ``count_min`` filter compares pair
 counts against ``count_min * n_pairs`` of the whole stack (the parameter's
-documented meaning), not the reference's chunk-dependent count.
+documented meaning), not the reference's chunk-dependent count. The
+ensemble's chunk results stay where the chunks left them (the card, or the
+host for a sharded chunk), and its finish runs there: only the four fields
+come down.
 """
 
 from __future__ import annotations
@@ -313,8 +316,31 @@ def _piv_timestep(
 
 
 def _merge_ensemble(left, right):
-    """Ensemble outputs of two consecutive chunks: sums and counts add, per-pair stats join."""
-    return (left[0] + right[0], left[1] + right[1], *_concat_pairs(left[2:], right[2:]))
+    """Ensemble outputs of two consecutive chunks: sums and counts add, per-pair stats join on their device."""
+    return (left[0] + right[0], left[1] + right[1], *(torch.cat([a, b]) for a, b in zip(left[2:], right[2:])))
+
+
+def _pair_mean(stat: torch.Tensor) -> torch.Tensor:
+    """``np.nanmean`` over the pair axis with zeros taken as rejected planes: a float32 sum over a count, NaN
+    where no pair counts."""
+    keep = (stat != 0) & ~torch.isnan(stat)
+    return torch.where(keep, stat, 0.0).sum(dim=0) / keep.sum(dim=0)
+
+
+def _ensemble_finish(corr_sum, corr_count, cmax, s2n, count_min, n_pairs_total, n_rows, n_cols) -> torch.Tensor:
+    """The ensemble's result from its sums and per-pair stats, on the device that holds them: (u, v) in px of the
+    mean of the gated planes, and the pairs' corr and s2n means, stacked [4, n_rows, n_cols].
+
+    As the JAX package's host finish: cells with fewer than ``count_min * n_pairs_total`` ok pairs are NaN in u, v
+    and corr, and so is the mean plane of a cell that no pair counts.
+    """
+    low = corr_count < count_min * n_pairs_total
+    corr_mean = torch.where(
+        (low | (corr_count == 0))[:, None, None], torch.nan, corr_sum / corr_count.clamp(min=1)[:, None, None]
+    )
+    u, v = piv_ops.u_v_displacement(corr_mean[None], n_rows, n_cols)
+    gated = torch.where(low.reshape(n_rows, n_cols), torch.nan, torch.stack([u[0], v[0], _pair_mean(cmax)]))
+    return torch.cat([gated, _pair_mean(s2n)[None]])
 
 
 def _piv_ensemble(
@@ -326,17 +352,17 @@ def _piv_ensemble(
 
     def run_one(span):
         if len(devices) > 1:
-            return parallel.piv_ensemble_sharded(
+            # host arrays: the finish runs on the CPU
+            return tuple(torch.as_tensor(o) for o in parallel.piv_ensemble_sharded(
                 span.frames, sas, ov, sas, mesh=parallel.make_mesh(devices), corr_min=corr_min, s2n_min=s2n_min,
                 signal_threshold=signal_threshold, **span.place(),
-            )
-        cs, cc, cmax, s2n = piv_kernels.piv_ensemble_routed(
+            ))
+        return piv_kernels.piv_ensemble_routed(
             to_device(span.frames, device), dim_size, sas, ov, n_rows, n_cols, corr_min, s2n_min, signal_threshold,
             **span.place(),
         )
-        return cs, cc, to_host(cmax), to_host(s2n)
 
-    # corr_sum and corr_count stay on the device across chunks
+    # every output stays where the chunks left it; only the fields come down
     corr_sum, corr_count = 0.0, 0.0
     cms, s2ns = [], []
     done = 0
@@ -348,30 +374,18 @@ def _piv_ensemble(
         s2ns.append(s2n)
         done += span.n_pairs
         log.info("PIV (ensemble): %d/%d", done, n_pairs_total)
-    corr_sum = to_host(corr_sum)
-    corr_count = to_host(corr_count)
-    cmax_all = np.concatenate(cms, axis=0)
-    s2n_all = np.concatenate(s2ns, axis=0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        low_count = corr_count < count_min * n_pairs_total
-        corr_sum[low_count] = np.nan
-        flat_low = low_count.reshape(n_rows, n_cols)
-        cmax_all = np.where(flat_low[None], np.nan, cmax_all)
-        corr_mean = corr_sum / np.maximum(corr_count, 1)[..., None, None]
-        corr_mean[corr_count == 0] = np.nan
-        # zeroed (rejected) planes must not drag the time stats down
-        cmax_masked = np.where(cmax_all == 0.0, np.nan, cmax_all)
-        s2n_masked = np.where(s2n_all == 0.0, np.nan, s2n_all)
-        cmax_mean = np.nanmean(cmax_masked, axis=0).reshape(1, n_rows, n_cols)
-        s2n_mean = np.nanmean(s2n_masked, axis=0).reshape(1, n_rows, n_cols)
-    u, v = piv_ops.u_v_displacement(torch.as_tensor(corr_mean)[None], n_rows, n_cols)
+    if corr_sum.is_cuda:
+        # the chunks' queued kernels drain here, so that the span holds the finish alone
+        torch.cuda.current_stream(corr_sum.device).synchronize()
+    with _trace.span("engine:ensemble_finish"):
+        # the pairs' stats joined whole, so their means do not depend on the chunk plan
+        fields = _ensemble_finish(
+            corr_sum, corr_count, torch.cat(cms), torch.cat(s2ns), count_min, n_pairs_total, n_rows, n_cols
+        )
+        u, v, cmax_mean, s2n_mean = to_host(fields)[:, None]
     dt_av = float(np.asarray(dt.values if hasattr(dt, "values") else dt).mean())
-    u = (u.numpy() * res_x / dt_av).astype(np.float32)
-    v = (v.numpy() * res_y / dt_av).astype(np.float32)
-    # NaN out low-count cells in displacements too
-    u[0][flat_low] = np.nan
-    v[0][flat_low] = np.nan
+    u = (u * res_x / dt_av).astype(np.float32)
+    v = (v * res_y / dt_av).astype(np.float32)
     return _assemble_ds(s2n_mean, cmax_mean, u, v, time_all[1:2], y, x, attrs)
 
 

@@ -178,6 +178,35 @@ def test_ensemble_kernel_signal_threshold(cuda):
     _compare_ensemble(out_k, out_p, 0.1)
 
 
+@pytest.mark.parametrize("count_min", [0.2, 0.5])
+def test_ensemble_finish_on_the_card_matches_the_cpu(cuda, count_min):
+    """The engine's ensemble finish on the kernel's results on the card against the same finish on their CPU
+    copies (the sums in another order, the card's ``logf``): NaN masks equal, corr and s2n within 1e-6 relative,
+    u and v within 1e-5 px. A band dark in 25 of 41 frames leaves its windows 15 of 40 ok pairs."""
+    from pyorc_tpu_torch.velocimetry import engine
+
+    rng = np.random.default_rng(25)
+    h, w = 4 * 64 + 20, 6 * 64 + 8
+    stack = _frames(rng, 41, h, w)
+    stack[:25, : h // 3, :] = 0
+    sas, overlap = (64, 64), (32, 32)
+    n_rows, n_cols = win.get_field_shape((h, w), sas, overlap)
+    out = piv_kernels.piv_ensemble_fused(torch.as_tensor(stack, device=cuda), (h, w), sas, overlap, n_rows, n_cols)
+    assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "cuda"
+    args = (count_min, stack.shape[0] - 1, n_rows, n_cols)
+    got = engine._ensemble_finish(*out, *args)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy()
+    want = engine._ensemble_finish(*(t.cpu() for t in out), *args).numpy()
+    assert np.isnan(want[0]).any() == (count_min == 0.5) and np.isfinite(want[0]).any()
+    for name, g, x in zip(("u", "v", "corr", "s2n"), got, want):
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(x), err_msg=name)
+        if name in ("u", "v"):
+            np.testing.assert_allclose(g, x, rtol=0, atol=1e-5, equal_nan=True, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, x, rtol=1e-6, atol=0, equal_nan=True, err_msg=name)
+
+
 def test_ensemble_kernel_raises_on_unsupported_geometry(cuda):
     frames = torch.zeros((3, 300, 300), device=cuda)
     for sas in ((130, 130), (6, 6), (136, 64)):

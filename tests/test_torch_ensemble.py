@@ -5,17 +5,21 @@ ensemble engine behind ``Frames.get_piv(ensemble_corr=True)``, and the chain
 from it to discharge. Inputs are made with numpy from seeds and handed to
 both packages."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 import pyorc_tpu
 import pyorc_tpu_torch
+from pyorc_tpu_torch import _device
 from pyorc_tpu.ops import piv as jpiv
 from pyorc_tpu.ops import piv_pallas
 from pyorc_tpu.ops import windows as jwin
 from pyorc_tpu_torch.ops import piv as tpiv
 from pyorc_tpu_torch.ops import piv_kernels
+from pyorc_tpu_torch.velocimetry import engine
 
 import chip_smoke
 from test_piv import make_particle_image, shift_image
@@ -210,6 +214,67 @@ def test_ensemble_chunked_equals_one_chunk(projected):
         np.testing.assert_array_equal(chunked[name].values, whole[name].values)
     for name in ("v_x", "v_y"):
         np.testing.assert_allclose(chunked[name].values, whole[name].values, rtol=1e-5, atol=1e-6)
+
+
+def _numpy_finish(corr_sum, corr_count, cmax_all, s2n_all, count_min, n_pairs_total, n_rows, n_cols):
+    """The engine's ensemble finish as it ran on the host before it moved to the device (the JAX package's):
+    (u, v, corr, s2n), u and v in px, each [n_rows, n_cols]."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        low_count = corr_count < count_min * n_pairs_total
+        corr_sum[low_count] = np.nan
+        flat_low = low_count.reshape(n_rows, n_cols)
+        cmax_all = np.where(flat_low[None], np.nan, cmax_all)
+        corr_mean = corr_sum / np.maximum(corr_count, 1)[..., None, None]
+        corr_mean[corr_count == 0] = np.nan
+        cmax_masked = np.where(cmax_all == 0.0, np.nan, cmax_all)
+        s2n_masked = np.where(s2n_all == 0.0, np.nan, s2n_all)
+        cmax_mean = np.nanmean(cmax_masked, axis=0).reshape(n_rows, n_cols)
+        s2n_mean = np.nanmean(s2n_masked, axis=0).reshape(n_rows, n_cols)
+    u, v = tpiv.u_v_displacement(torch.as_tensor(corr_mean)[None], n_rows, n_cols)
+    u, v = u.numpy()[0], v.numpy()[0]
+    u[flat_low] = np.nan
+    v[flat_low] = np.nan
+    return u, v, cmax_mean, s2n_mean
+
+
+@pytest.mark.parametrize("n_dark, count_min", [(6, 0.2), (6, 0.5), (10, 0.0)])
+def test_ensemble_finish_matches_the_numpy_finish(projected, n_dark, count_min):
+    """The finish on the device that holds the chunks' results against the numpy finish it replaced, on the
+    dark-band stack: NaN masks equal, corr and s2n within 1e-6 relative, u and v within 1e-5 px. A band dark in
+    every frame leaves its cells no ok pair, so that count_min 0 still takes them out."""
+    _, _, proj_t, _ = projected
+    data = torch.as_tensor(np.asarray(_with_dark_band(proj_t, n_dark).values))
+    args = _grid(tuple(data.shape[1:]), (64, 64), 32)
+    n_rows, n_cols = args[3:]
+    out = piv_kernels.piv_ensemble_routed(data, *args)
+    n_pairs = data.shape[0] - 1
+    got = engine._ensemble_finish(*out, count_min, n_pairs, n_rows, n_cols).numpy()
+    want = _numpy_finish(*(t.numpy().copy() for t in out), count_min, n_pairs, n_rows, n_cols)
+    count = out[1].numpy().reshape(n_rows, n_cols)
+    low, none = count < count_min * n_pairs, count == 0
+    assert low.any() == (count_min == 0.5) and none.any() == (n_dark == 10)
+    # a cell no pair counts has no corr or s2n mean; its NaN mean plane still gives a clamped peak (as in JAX)
+    nan_cells = {"u": low, "v": low, "corr": low | none, "s2n": none}
+    for name, g, w in zip(("u", "v", "corr", "s2n"), got, want):
+        assert g.shape == w.shape == (n_rows, n_cols)
+        np.testing.assert_array_equal(np.isnan(w), nan_cells[name], err_msg=name)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+        if name in ("u", "v"):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, equal_nan=True, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, equal_nan=True, err_msg=name)
+
+
+@pytest.mark.parametrize("chunksize", [None, 5])
+def test_ensemble_brings_down_only_the_fields(projected, chunksize):
+    """Over an ensemble get_piv only the four fields come down: no per-pair statistic and no plane, whatever
+    the chunk plan (the CPU device counts its copies too)."""
+    _, _, proj_t, _ = projected
+    before = _device.COPY_BYTES["d2h"]
+    piv = proj_t.frames.get_piv(window_size=64, overlap=(32, 32), ensemble_corr=True, chunksize=chunksize)
+    n_rows, n_cols = piv["v_x"].shape[1:]
+    assert _device.COPY_BYTES["d2h"] - before == 4 * n_rows * n_cols * 4
 
 
 def test_ensemble_with_passes_raises(projected):

@@ -165,6 +165,19 @@ def test_engine_chunks_counts_the_plan_and_each_half_of_a_split(stack, camera, m
     assert _trace.summary()["videos"][_trace.current_video()]["counters"] == {"engine:chunks": planned + 1}
 
 
+@pytest.mark.parametrize("chunksize", [3, 20])
+def test_ensemble_finish_is_one_span_a_video(stack, camera, chunksize):
+    """The ensemble's finish (the gated mean plane, its peak, the pairs' means and the one download) is the span
+    ``engine:ensemble_finish``, once a video whatever the chunk plan; the per-pair route has none."""
+    proj = _projected(stack, camera)
+    with _profiler():
+        proj.frames.get_piv(window_size=WINDOW, chunksize=chunksize, ensemble_corr=True)
+        proj.frames.get_piv(window_size=WINDOW, chunksize=chunksize)
+    (finish,) = [r for r in _trace.records() if r.name == "engine:ensemble_finish"]
+    assert finish.parent is None and finish.thread == threading.get_ident()
+    assert _trace.summary()["videos"][_trace.current_video()]["spans"]["engine:ensemble_finish"][0] == 1
+
+
 @pytest.mark.parametrize("slow", ["consumer", "producer"])
 def test_prefetch_queue_spans_name_the_slow_side(slow):
     pause = 0.02
