@@ -16,8 +16,8 @@
    overlap), and at 32 and 128 px with ``pair_stride=2`` (4 explicit pairs,
    as multipass PIV gives them). The kernel is held against its plain
    PyTorch version on the card and both are timed (CUDA events, median of 10
-   runs after warm-up), each time printed beside its prediction
-   (``PREDICTED_MS``). At 64 and 128 px the card's SM clock and power draw
+   runs after warm-up), each beside its bound (``roofline.pairs_bound``;
+   step 3's ``roofline.ensemble_bound``). At 64 and 128 px the card's SM clock and power draw
    are read while the kernel runs back to back. Each consecutive-pair stack
    is also cut in two launches at pair 3 and at pair 5 (each a
    ``piv_kernels.Span`` with its halo): the joined outputs must be the one
@@ -173,21 +173,15 @@
    velocities held to the kernel's mean-plane displacements; both timed,
    and beside them ``torch.fft.rfft2`` + ``irfft2`` alone over those windows.
 12b. Lazy ensemble chain: step 5b on the 4K host stack (64 px, ensemble).
-   Then normalize -> project of that chain streamed two ways and held equal
-   batch by batch, timed in turns (port, JAX, port): whole frames up with each
-   frame's extrema taken on the card (the port's design), and the JAX
-   package's (extrema over the whole frame on the host, then only the ortho
-   source box cropped and uploaded).
 13. Wide ensemble slice: the projected 4K stack through get_piv(128 px,
    ensemble_corr=True) -> masks -> get_transect -> get_q -> get_river_flow
    (Pallas B5's geometry, the kernel's largest plane), held to the truth as
    step 11, then the main-path check of step 12 at 128 px.
-15. The port's benchmarks and examples in this process on the card:
-   ``bench_torch.py --full --chain`` and ``bench_e2e_torch.py --seconds 2
-   --samples 60``, each JSON line printed with this card in it (and the e2e
-   surface speed within 5 % of the truth); then ``examples/torch_demo.py``
-   (no netCDF without h5py), ``torch_06_water_level_optical.py`` and
-   ``torch_07_stiv_velocimetry.py``, each passing its own checks.
+15. The port's examples in this process on the card:
+   ``examples/torch_demo.py`` (no netCDF without h5py),
+   ``torch_06_water_level_optical.py`` and ``torch_07_stiv_velocimetry.py``,
+   each passing its own checks. The port's speed is measured by the
+   benchmark (``BENCHMARK.json``, ``benchmark/run.py``), not here.
 16. The rest of the JAX package's surface on the card (after step 5g, on the
    stacks it holds): (a) per-pair PIV at 26 px on the first 33 frames of step
    4's projected stack through the plain route, ``piv_pairs(corr_method=
@@ -197,9 +191,8 @@
    route) on the first 33 frames of the 4K projected stack, bit for bit one
    unstripped call and the engine's plain route, the strip count printed; (c)
    ``LazyFrames.read_batch_np`` on a lazy 1080p stack (normalized on the
-   card) equal to ``read_batch(...)`` downloaded. Each time is a median in ms
-   beside ``SURFACE_PREDICTED_MS``, on a line with the card's name and power
-   limit.
+   card) equal to ``read_batch(...)`` downloaded. Each time is a median in ms,
+   on a line with the card's name and power limit.
 17. Prints one JSON line about the kernels (per pair, ensemble, and the
    multipass deformation, which replaces no Pallas kernel), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -290,25 +283,6 @@ ENS_KERNEL_CASES = (
     ((64, 128), (32, 64), 65), (64, 32, 64),
 )
 CORR_MIN, S2N_MIN, COUNT_MIN = 0.2, 3.0, 0.2  # get_piv's ensemble defaults
-
-# Kernel times [ms] predicted before the first card run of the kernels' fixed grouping (runs of
-# pairs from frame 0 of the whole stack; PERF.md §6; an H100 at 700 W), printed beside the measured
-# ones: whole-stack launches within 5 % of the times before, step 2's 8-pair shapes within 10 % at
-# 16-64 px and 0-20 % slower from 96 px up (one run of 8 pairs in half the blocks)
-PREDICTED_MS = {
-    "kernel 16 px": (0.91, 1.11), "kernel 26 px": (1.47, 1.79), "kernel 52 px": (1.22, 1.50),
-    "kernel 64 px": (1.02, 1.24), "kernel 96 px": (2.90, 3.48), "kernel 104 px": (1.40, 1.68),
-    "kernel 128 px": (1.81, 2.17), "kernel 64x128 px": (1.57, 1.88), "kernel 128x64 px": (2.33, 2.80),
-    "kernel 32x64 px": (2.10, 2.56), "kernel 32 px, pair_stride 2": (0.76, 0.84),
-    "kernel 128 px, pair_stride 2": (1.07, 1.19),
-    "ensemble kernel 16 px": (5.16, 5.70), "ensemble kernel 26 px": (10.42, 11.52),
-    "ensemble kernel 32 px": (5.55, 6.13), "ensemble kernel 64 px": (5.93, 6.55),
-    "ensemble kernel 32 px, step 12": (9.56, 10.56), "ensemble kernel 104 px": (9.74, 10.76),
-    "ensemble kernel 128 px": (11.48, 12.68), "ensemble kernel 64x128 px": (10.59, 11.71),
-    "ensemble kernel 64 px, 63 pairs": (5.85, 6.47),
-    "main path 16 px": (8.4, 9.3), "main path 26 px": (14.5, 16.0), "main path 64x128 px": (13.0, 14.4),
-    "ensemble main path 64 px": (63.0, 70.0), "ensemble main path 128 px": (117.0, 130.0),
-}
 
 # The filters phase on the per-pair slice's projected stack: a trailing window of
 # 25 frames for reduce_rolling (the reference's default), and the leading frames
@@ -964,86 +938,6 @@ def lazy_phase(stack, cc, ref_pivs, device, fps=FPS, ensemble=False, aoi_px=100,
     return results, times, rows, proj
 
 
-def _host_extrema(batch, mean):
-    """Each frame's extrema of (frame - mean) in float32 over the whole frame, one frame at a
-    time: the JAX package's ``host_stats`` of normalize (``pyorc_tpu/api/frames.py:130-140``)."""
-    mins, maxs = [], []
-    for f in batch:
-        red = np.asarray(f, dtype=np.float32) - mean
-        mins.append(red.min(axis=(-2, -1), keepdims=True))
-        maxs.append(red.max(axis=(-2, -1), keepdims=True))
-    return np.stack(mins), np.stack(maxs)
-
-
-class _HostExtremaSource(HostFrameSource):
-    """A :class:`HostFrameSource` that also takes each batch's normalize extrema on the host
-    before the batch is cropped, as the JAX package's upload crop does."""
-
-    def __init__(self, stack, mean):
-        super().__init__(stack)
-        self.mean = mean
-        self.extrema = None
-
-    def _decode_frames(self, positions, method, uploader=None):
-        out = super()._decode_frames(positions, method)
-        self.extrema = _host_extrema(out, self.mean)
-        return out
-
-
-def upload_designs(stack, device, port=None, fps=ENS_FPS, chunk=40, camera=ENS_CAMERA):
-    """normalize -> project of the lazy chain over ``stack``, streamed by two designs and held equal batch by batch.
-
-    ``device_extrema``, the port's (``port``: the projected ``LazyFrames`` of
-    :func:`lazy_phase` on ``stack``, else built here): whole frames go up, and
-    normalize takes each frame's extrema on the device. ``host_extrema_crop``, the JAX package's
-    (``pyorc_tpu/api/frames.py:130-140, 253-334``): each frame's extrema are
-    taken on the host over the whole frame, then only the source box of the
-    ortho maps is cropped and uploaded. The designs run in turns (port, JAX,
-    port; JAX's took 6x the port's on the card, PERF.md §6), each consuming
-    ``chunk``-frame batches and waiting for the card. Returns {design: {"walls_s": [..], "uploaded_bytes": n}}.
-    """
-    import torch
-
-    import pyorc_tpu_torch
-    from pyorc_tpu_torch import LazyFrames
-    from pyorc_tpu_torch._device import COPY_BYTES, to_device
-    from pyorc_tpu_torch.ops import filters as flt
-
-    pyorc_tpu_torch.set_device(device)
-    cc = nadir_camera_config(*stack.shape[1:], window_size=ENS_WINDOW, **camera)
-    da = lazy_dataarray(HostFrameSource(stack), cc, fps)
-    if port is None:
-        port = da.frames.normalize(samples=15).frames.project().data
-    raw = da.frames.project().data  # no op before project: its maps are cropped to the source box
-    r0, r1, c0, c1 = raw._crop
-    mean = stack[:: round(len(stack) / 15)].astype(np.float32).mean(axis=0).astype(np.float32)
-    source = _HostExtremaSource(stack, mean)
-    mean_crop = to_device(np.ascontiguousarray(mean[r0:r1, c0:c1]))
-
-    def normalize_crop(batch):
-        fmin, fmax = source.extrema  # the worker thread decodes and runs the ops of one batch in turn
-        return flt.normalize_with_stats(batch, mean_crop, to_device(fmin), to_device(fmax))
-
-    jax_design = LazyFrames(source, "grayscale", np.arange(len(stack)), port.shape[1:],
-                            ops=[normalize_crop, raw._ops[-1]], crop=raw._crop)
-    designs = {"device_extrema": port, "host_extrema_crop": jax_design}
-    out = {name: {"walls_s": []} for name in designs}
-    first = {}
-    for name in ("device_extrema", "host_extrema_crop", "device_extrema"):
-        h2d = COPY_BYTES["h2d"]
-        t0 = time.perf_counter()
-        batches = [b for _, b in designs[name].iter_batches(chunk)]
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        out[name]["walls_s"].append(time.perf_counter() - t0)
-        out[name]["uploaded_bytes"] = COPY_BYTES["h2d"] - h2d
-        first.setdefault(name, batches)
-    for a, b in zip(first["device_extrema"], first["host_extrema_crop"]):
-        if not torch.equal(a, b):
-            raise AssertionError("the two upload designs give different projected frames")
-    return out
-
-
 def decoder_probe():
     """What this machine offers for video decode, as one dict: cv2 (its FFmpeg, and whether it
     round-trips a lossless clip), the port's native decoder build (compiler, and the first error
@@ -1114,15 +1008,6 @@ H264_WINDOW = 25  # the lazy chain's window on clip (a): 26 px, as the slice's s
 # 16 frames of clip (a) read alone: its sync frames (0, 30, 60), the frames after them, B-frames and
 # P-frames of the first, middle and last GOP, and the last frame
 H264_SEEKS = (0, 1, 2, 3, 5, 13, 29, 30, 31, 33, 45, 59, 60, 61, 62, 63)
-# Predictions for the conversion kernel's redesign (a thread a 16 x 2 strip, 16-byte loads and stores),
-# written before its first card run (PERF.md §6; an H100 at 700 W): the lazy chain's main batch, 30
-# frames of 1080p, at 71-89 % of its bound (bytes) in gray, the same batch in RGB, and the 16-byte
-# path's SASS from entry to exit over its 32 pixels
-PREDICTED = {
-    "yuv420_to_frames 30x1080x1920 gray, ms": (0.052, 0.065),
-    "yuv420_to_frames 30x1080x1920 rgb, ms": (0.095, 0.12),
-    "yuv420_to_frames 16-byte path, SASS a pixel": (18, 28),
-}
 # (n, h, w) of the conversion's standalone timing (--conversion-times): the lazy chain's main batch of
 # clip (a), and a batch of clip (b)'s 4K frames
 CONVERSION_SHAPES = ((30, 1080, 1920), (9, 2160, 3840))
@@ -1585,10 +1470,7 @@ def nvdec_phase(device, folder):
     timing["main_path_mode"] = "gray" if main_shape[3] else "rgb"
     timing["launch_shapes"] = sorted(f"{n}x{h}x{w}{' gray' if g else ' rgb'}" for n, h, w, g in shapes)
     timing["main_path_paths"] = paths
-    n, h, w = main_shape[:3]
-    predicted = {mode: PREDICTED.get(f"yuv420_to_frames {n}x{h}x{w} {mode}, ms") for mode in ("gray", "rgb")}
-    print(f"conversion kernel at the lazy chain's main batch ({_card_line()}): " + json.dumps(timing)
-          + f"; predicted ms {json.dumps(predicted)}", flush=True)
+    print(f"conversion kernel at the lazy chain's main batch ({_card_line()}): " + json.dumps(timing), flush=True)
     return results, launches + recipe_launches, timing
 
 
@@ -2230,20 +2112,6 @@ def _pairs_gap(frames, args, pair_stride=1):
     return torch.cat(gaps).reshape(-1, args[3], args[4])
 
 
-def pairs_bound(frames, args, pair_stride=1):
-    """The per-pair kernel's bound (``pyorc_tpu_torch.ops.roofline``, shared with ``bench_torch.py``)."""
-    from pyorc_tpu_torch.ops import roofline
-
-    return roofline.pairs_bound(frames, args, pair_stride)
-
-
-def ensemble_bound(frames, args):
-    """The ensemble kernel's bound (``pyorc_tpu_torch.ops.roofline``)."""
-    from pyorc_tpu_torch.ops import roofline
-
-    return roofline.ensemble_bound(frames, args)
-
-
 def compare_kernel(frames, args, label, pair_stride=1):
     """The per-pair kernel against its plain version on the same frames; returns (kernel outputs, errors).
 
@@ -2376,7 +2244,7 @@ def kernel_phase(device):
     and STRIDE2_SIZES (pair_stride=2), both timed; returns numbers keyed by (size, pair_stride)."""
     import torch
 
-    from pyorc_tpu_torch.ops import piv_kernels
+    from pyorc_tpu_torch.ops import piv_kernels, roofline
 
     h, w, n_frames = 1088, 1920, 9
     frames = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
@@ -2389,8 +2257,7 @@ def kernel_phase(device):
         if size in CLOCK_SIZES and stride == 1:
             clocks_under_load(lambda: piv_kernels.piv_pairs_fused(frames, *args), row["ms"], label)
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_pairs_fused_plain(frames, *args, pair_stride=stride))
-        row["bound_ms"], row["bound_by"] = pairs_bound(frames, args, stride)
-        row["predicted_ms"] = PREDICTED_MS.get(label)
+        row["bound_ms"], row["bound_by"] = roofline.pairs_bound(frames, args, stride)
         if stride == 1:
             row["split_bitwise"] = split_pairs_bitwise(frames, args, label)
         out[size, stride] = row
@@ -2402,7 +2269,7 @@ def ensemble_kernel_phase(device):
     """Ensemble kernel vs plain version at 1088x1920, 65 frames, ENS_KERNEL_CASES, both timed."""
     import torch
 
-    from pyorc_tpu_torch.ops import piv_kernels
+    from pyorc_tpu_torch.ops import piv_kernels, roofline
 
     h, w, n_frames = 1088, 1920, 65
     stack = torch.as_tensor(advected_stack(h, w, n_frames, device), device=device)
@@ -2418,8 +2285,7 @@ def ensemble_kernel_phase(device):
         if size in CLOCK_SIZES and n == n_frames:
             clocks_under_load(lambda: piv_kernels.piv_ensemble_fused(frames, *args), row["ms"], label)
         row["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args))
-        row["bound_ms"], row["bound_by"] = ensemble_bound(frames, args)
-        row["predicted_ms"] = PREDICTED_MS.get(label)
+        row["bound_ms"], row["bound_by"] = roofline.ensemble_bound(frames, args)
         row["split_max_rel_dsum"] = split_ensemble_held(frames, args, label)
         out[size, step, n] = row
         print(f"{label}: {json.dumps(row)}", flush=True)
@@ -2647,7 +2513,7 @@ def main_path_check(proj, pivs, device, reps=10):
     """
     import torch
 
-    from pyorc_tpu_torch.ops import piv_kernels
+    from pyorc_tpu_torch.ops import piv_kernels, roofline
 
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
     dt = np.diff(proj["time"].values)[:, None, None]
@@ -2669,8 +2535,7 @@ def main_path_check(proj, pivs, device, reps=10):
                 lambda: piv_kernels.piv_pairs_fused(explicit, *args, pair_stride=2), reps
             )
             del explicit
-        out[w_px]["bound_ms"], out[w_px]["bound_by"] = pairs_bound(frames, args)
-        out[w_px]["predicted_ms"] = PREDICTED_MS.get(label)
+        out[w_px]["bound_ms"], out[w_px]["bound_by"] = roofline.pairs_bound(frames, args)
         print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out[w_px])}", flush=True)
     return out
 
@@ -2706,12 +2571,6 @@ def engine_chunks_check(proj, pivs):
     return out
 
 
-BENCH_RUNS = (
-    ("bench_torch", ["--full", "--chain"]),
-    # 60 frames: normalize's mean of every frame (its default 8 samples, 8 frames apart, would
-    # keep a static copy of the texture on so short a cut: bench_e2e_torch.py's docstring)
-    ("bench_e2e_torch", ["--seconds", "2", "--samples", "60"]),
-)
 EXAMPLES = (
     ("torch_demo.py", ("scipy", "cv2", "click", "yaml")),
     ("torch_06_water_level_optical.py", ("scipy",)),
@@ -2719,12 +2578,10 @@ EXAMPLES = (
 )
 
 
-def benchmarks_phase(folder):
-    """Step 15: the port's benchmarks (BENCH_RUNS) and examples, in this process on the card.
+def examples_phase(folder):
+    """Step 15: the port's examples (EXAMPLES), in this process on the card.
 
-    Each benchmark's JSON line is printed; it must return 0, carry this card's name and power
-    limit and, for ``bench_e2e_torch``, a surface speed within its 5 % bar. Each example runs
-    where its imports exist (the card's machine has no h5py: ``torch_demo.py`` then writes no
+    Each example runs where its imports exist (the card's machine has no h5py: ``torch_demo.py`` then writes no
     netCDF, whose files are held on the CPU only, as step 5f's host-only outputs are) and must
     pass its own checks. Returns {name: its line or result}."""
     import contextlib
@@ -2732,19 +2589,7 @@ def benchmarks_phase(folder):
     import io
     import runpy
 
-    card = _card_line()
     results = {}
-    for name, argv in BENCH_RUNS:
-        module = __import__(name)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = module.main(argv)
-        line = json.loads(buf.getvalue().strip().splitlines()[-1])
-        print(f"{name}.py {' '.join(argv)} (wall {time.perf_counter() - t0:.3f} s): {json.dumps(line)}", flush=True)
-        if rc != 0 or line["card"] != card or line["metric"].endswith("_cpu_rehearsal"):
-            raise AssertionError(f"{name}: exit {rc}, card {line['card']!r} (this card: {card!r})")
-        results[name] = line
     for script, needs in EXAMPLES:
         missing = [m for m in needs if importlib.util.find_spec(m) is None]
         if missing:
@@ -2788,7 +2633,7 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
 
     import torch
 
-    from pyorc_tpu_torch.ops import multipass, piv_kernels
+    from pyorc_tpu_torch.ops import multipass, piv_kernels, roofline
 
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
     w_px = window_size + window_size % 2
@@ -2837,7 +2682,7 @@ def multipass_main_path_check(proj, piv, device, window_size=32, passes=3, reps=
         if device != "cpu":
             row["ms"] = _median_ms(lambda: kernel(pairs, *args, pair_stride=2), reps)
             row["plain_ms"] = _median_ms(lambda: _plain_pairs(pairs, args, 2), 3)
-        row["bound_ms"], row["bound_by"] = pairs_bound(pairs, args, 2)
+        row["bound_ms"], row["bound_by"] = roofline.pairs_bound(pairs, args, 2)
         out["passes"].append(row)
     out["deform"] = [deform_check(*args, f"{label} pass {k + 2}", device) for k, (args, _) in
                      enumerate(calls["deform"])]
@@ -2962,7 +2807,7 @@ def ensemble_main_path_check(proj, piv, device, window=ENS_WINDOW, reps=3):
     """
     import torch
 
-    from pyorc_tpu_torch.ops import piv_kernels
+    from pyorc_tpu_torch.ops import piv_kernels, roofline
 
     frames = torch.as_tensor(np.ascontiguousarray(proj.values)).to(device)
     args = _grid(frames.shape[1:], window)
@@ -2984,8 +2829,7 @@ def ensemble_main_path_check(proj, piv, device, window=ENS_WINDOW, reps=3):
         out["ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused(frames, *args), reps)
         clocks_under_load(lambda: piv_kernels.piv_ensemble_fused(frames, *args), out["ms"], label)
         out["plain_ms"] = _median_ms(lambda: piv_kernels.piv_ensemble_fused_plain(frames, *args), reps)
-    out["bound_ms"], out["bound_by"] = ensemble_bound(frames, args)
-    out["predicted_ms"] = PREDICTED_MS.get(label)
+    out["bound_ms"], out["bound_by"] = roofline.ensemble_bound(frames, args)
     out["low_count_share"] = float(low.mean())
     print(f"{label} ({tuple(frames.shape)} uint8): {json.dumps(out)}", flush=True)
     return out
@@ -3550,12 +3394,6 @@ SURFACE_FRAMES = 33  # step 16's stacks: the first 33 frames (32 pairs) of the s
 SURFACE_WINDOW = 26  # step 16a: the 26 px recipe window on the 1080p projected stack
 STRIPS_WINDOW = 256  # step 16b: windows the kernels do not take (the wide plain route) on the 4K projected stack
 LAZY_NP_FRAMES = 8  # step 16c: frames of one read_batch_np call
-# Step 16's medians [ms], predicted before its first card run (PERF.md §6; an H100 at 700 W)
-SURFACE_PREDICTED_MS = {
-    "kernel 26 px": (3.5, 4.5), "plain fft 26 px": (12.0, 25.0), "plain matmul 26 px": (25.0, 60.0),
-    "plain 256 px one call": (20.0, 45.0), "plain 256 px strips": (20.0, 55.0), "read_batch_np": (8.0, 25.0),
-    "planes fft 26 px": (6.0, 15.0), "planes matmul 26 px": (20.0, 45.0),
-}
 
 
 def _hold_plain_route(got, want, gap, label, tol=1e-3):
@@ -3662,7 +3500,7 @@ def surface_phase(proj, ens_proj, stack, device, strip_budget=None, reps=5):
             lazy.read_batch_np(0, k)
             walls.append((time.perf_counter() - t0) * 1e3)
         times["read_batch_np"] = float(np.median(walls[1:]))
-    out["ms"] = {k: {"ms": v, "predicted_ms": SURFACE_PREDICTED_MS.get(k)} for k, v in times.items()}
+    out["ms"] = times
     return out
 
 
@@ -3886,8 +3724,7 @@ def main(argv) -> int:
         print(log_file.read_text().strip())
     print("sass deform_pairs_kernel (innermost storing loops) " + json.dumps(sass_report(lib)), flush=True)
     print("sass yuv420_to_frames_kernel (no loop; the function's instructions, and on the 16-byte path, "
-          "gray (2 vector stores) and RGB (6), the instructions from entry to exit and a converted pixel; "
-          f"predicted {PREDICTED['yuv420_to_frames 16-byte path, SASS a pixel']}) "
+          "gray (2 vector stores) and RGB (6), the instructions from entry to exit and a converted pixel) "
           + json.dumps(sass_report(lib, "yuv420_to_frames_kernel", sass_vector_paths)), flush=True)
     probe = decoder_probe()
     print("decoder_probe " + json.dumps(probe), flush=True)
@@ -4074,7 +3911,7 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     ens_cc = nadir_camera_config(h, w, window_size=ENS_WINDOW, **ENS_CAMERA)
-    (lazy_ens_results, _, lazy_ens_rows, lazy_ens_proj), lazy_ens_launches = _drive(
+    (lazy_ens_results, _, lazy_ens_rows, _), lazy_ens_launches = _drive(
         piv_kernels, "piv_ensemble",
         lambda: lazy_phase(ens_stack, ens_cc, {ENS_WINDOW: ens_piv}, device, fps=ENS_FPS, ensemble=True,
                            aoi_px=ENS_CAMERA["aoi_px"], tag="lazy ens"),
@@ -4083,12 +3920,7 @@ def main(argv) -> int:
     print(f"lazy ensemble chain {w}x{h}x{ENS_FRAMES} from a host frame source: wall {wall:.3f} s; "
           f"{lazy_ens_launches} launches; stages " + json.dumps(lazy_ens_rows))
     print("lazy ensemble chain results " + json.dumps(lazy_ens_results), flush=True)
-    del ens_piv
-    designs = upload_designs(ens_stack, device, port=lazy_ens_proj.data)
-    del lazy_ens_proj
-    print(f"lazy 4K normalize -> project, whole frames up with the extrema on the card against the JAX package's "
-          f"host extrema and cropped upload (same frames out): {json.dumps(designs)}", flush=True)
-    del ens_stack
+    del ens_piv, ens_stack
     print(f"torch.fft.rfft2 + irfft2 alone over the {ENS_WINDOW} px windows of that stack "
           f"(context, not the kernel's contract): {fft_alone_ms(ens_proj, device):.3f} ms", flush=True)
 
@@ -4124,8 +3956,8 @@ def main(argv) -> int:
     md_ens = sum(n for k, n in md_launches.items() if "ensemble" in k)
 
     t0 = time.perf_counter()
-    benchmarks_phase(ROOT / "build")
-    print(f"benchmarks and examples step 15: wall {time.perf_counter() - t0:.3f} s", flush=True)
+    examples_phase(ROOT / "build")
+    print(f"examples step 15: wall {time.perf_counter() - t0:.3f} s", flush=True)
 
     main_size = 16
     coarse = mp_main[32]["passes"][0]  # the 128 px pass

@@ -1,5 +1,5 @@
-"""The least time an H100 could take for the hand-written kernels' work: one definition for
-``chip_smoke.py`` and ``bench_torch.py``.
+"""The least time an H100 could take for the hand-written kernels' work, for ``chip_smoke.py``'s
+timings; ``benchmark/roofline.py`` is the benchmark's frozen copy of these bounds.
 
 A kernel's bound is the larger of two times: its operations (for the PIV
 kernels those of the FFT algorithm, whatever implements it) over the card's

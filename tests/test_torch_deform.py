@@ -144,6 +144,26 @@ def test_deform_bound_at_1080p_is_set_by_bytes():
     assert ops_ms == pytest.approx(0.3501, abs=1e-4) and ops_ms < bound_ms
 
 
+@pytest.mark.parametrize("kind, shape, w_px, want_ms", [
+    # chip_smoke's kernel phase: 9 uint8 frames of 1088x1920 at 16 px, 8 consecutive pairs
+    ("pairs", (9, 1088, 1920), 16, 0.052148),
+    # the 4K ensemble slice's projected stack (2160x3840 projected to 1560 x 3240, 47 x 100 windows), 299 pairs
+    ("ensemble", (300, 1560, 3240), 64, 6.109239),
+])
+def test_piv_bounds_are_set_by_operations(kind, shape, w_px, want_ms):
+    """The PIV kernels' yardsticks from shapes alone: the FFT algorithm's operations at the fp32 peak,
+    not the bytes, set the per-pair kernel's bound at 16 px and the ensemble kernel's at 64 px."""
+    import chip_smoke
+    from pyorc_tpu_torch.ops import roofline
+
+    frames = torch.empty(shape, dtype=torch.uint8, device="meta")
+    args = chip_smoke._grid(shape[1:], w_px)
+    bound = roofline.pairs_bound if kind == "pairs" else roofline.ensemble_bound
+    bound_ms, bound_by = bound(frames, args)
+    assert bound_by == "operations"
+    assert bound_ms == pytest.approx(want_ms, abs=1e-6)
+
+
 SASS_LISTING = """
 	code for sm_90a
 		Function : _ZN12_GLOBAL__N_119deform_pairs_kernelEPKfiiiS1_S1_iiS1_S1_PfPy

@@ -67,14 +67,11 @@ def test_slice_runs_without_jax_and_host_libraries():
         results, _, _, piv = chip_smoke.ensemble_slice_phase(480, 640, 8, "cpu", camera=camera, stack=stack)
         assert piv_kernels.KERNEL_ROUTE["piv_ensemble_fused"] == "plain_cpu"
         cc = chip_smoke.nadir_camera_config(480, 640, window_size=chip_smoke.ENS_WINDOW, **camera)
-        results, _, _, lazy_proj = chip_smoke.lazy_phase(
+        results, _, _, _ = chip_smoke.lazy_phase(
             stack, cc, {{chip_smoke.ENS_WINDOW: piv}}, "cpu", fps=chip_smoke.ENS_FPS, ensemble=True, aoi_px=100,
             tag="lazy ens",
         )
         assert set(results) == {{chip_smoke.ENS_WINDOW}}, results
-        designs = chip_smoke.upload_designs(stack, "cpu", port=lazy_proj.data, chunk=3, camera=camera)
-        up = {{name: d["uploaded_bytes"] for name, d in designs.items()}}
-        assert up["device_extrema"] == stack.nbytes > up["host_extrema_crop"], up
         leaked = sorted(m for m in sys.modules if m == "pyorc_tpu" or m.startswith("pyorc_tpu."))
         assert not leaked, leaked
         print("SLICE_OK")
@@ -245,11 +242,10 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("name", [
-    "bench_torch.py", "bench_e2e_torch.py", "examples/torch_demo.py", "examples/torch_06_water_level_optical.py",
-    "examples/torch_07_stiv_velocimetry.py",
+    "examples/torch_demo.py", "examples/torch_06_water_level_optical.py", "examples/torch_07_stiv_velocimetry.py",
 ])
 def test_benchmarks_and_examples_import_neither_jax_nor_the_jax_package(name):
-    """Source check: the port's benchmark scripts and examples import neither jax nor pyorc_tpu."""
+    """Source check: the port's examples import neither jax nor pyorc_tpu."""
     assert (ROOT / name).is_file()
     assert not _jax_imports(ROOT / name)
 
